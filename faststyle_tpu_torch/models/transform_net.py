@@ -1,0 +1,210 @@
+"""Johnson-style image transformation network, instance-norm variant
+(counterpart of faststyle_tpu/models/transform_net.py, naive NHWC walk).
+
+Topology:
+  reflect_pad 40
+  initconv_0: 9x9  3->16 s1 SAME  | IN | relu
+  initconv_1: 3x3 16->32 s2 SAME  | IN | relu
+  initconv_2: 3x3 32->64 s2 SAME  | IN | relu
+  resblock_0..4: [3x3 64->64 VALID | IN | relu | 3x3 VALID | IN] + crop-2 skip
+  upsample_0: resize-conv (or deconv) 3x3 64->32 net-2x | IN | relu
+  upsample_1: resize-conv (or deconv) 3x3 32->16 net-2x | IN | relu
+  upsample_2: 9x9 16->3 s1 SAME (or its transposed form) | IN | scaled_tanh
+
+Input NHWC, RGB in [0, 255], any H and W; output in [0, 255] with the shape
+law of `output_shape`. Params are `{block: {var: tensor}}` in torch layouts
+(OIHW convs, IOHW transposed convs; see `convert`) under the JAX package's
+block and variable names. The JAX package's packed space-to-depth layout is
+a TPU matrix-unit trick that computes the same function, so it is not
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from faststyle_tpu_torch.ops import layers as L
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+# (kernel, cin, cout, stride) per block — the instance-norm "halved" widths
+_INIT_SPECS = [(9, 3, 16, 1), (3, 16, 32, 2), (3, 32, 64, 2)]
+_NUM_RESBLOCKS = 5
+_UP_SPECS = [(3, 64, 32), (3, 32, 16)]
+_FINAL_SPEC = (9, 16, 3)
+
+UPSAMPLE_METHODS = ("resize", "deconv")
+
+
+def init_params(
+    generator: torch.Generator,
+    upsample_method: str = "resize",
+    *,
+    device: str | torch.device = "cuda",
+) -> Params:
+    """Fresh training init with the reference's distributions: conv
+    W ~ N(0, 0.1^2); the upsample convs N(0, 1) (TF's random_normal default,
+    kept because it defines the published recipe), and the final deconv too;
+    IN scale 1, shift 0; no biases. Drawn on the CPU from `generator`, so a
+    seed gives the same params on every device."""
+    if upsample_method not in UPSAMPLE_METHODS:
+        raise ValueError(f"upsample_method must be one of {UPSAMPLE_METHODS}")
+
+    def norm(shape, stddev):
+        return (stddev * torch.randn(shape, generator=generator)).to(device)
+
+    def affine(cout):
+        return torch.ones(cout, device=device), torch.zeros(cout, device=device)
+
+    params: Params = {}
+    for i, (k, cin, cout, _s) in enumerate(_INIT_SPECS):
+        scale, shift = affine(cout)
+        params[f"initconv_{i}"] = {"W": norm((cout, cin, k, k), 0.1), "INscale": scale, "INshift": shift}
+    for i in range(_NUM_RESBLOCKS):
+        blk = {}
+        for j in ("1", "2"):
+            blk["W" + j] = norm((64, 64, 3, 3), 0.1)
+            blk["INscale" + j], blk["INshift" + j] = affine(64)
+        params[f"resblock_{i}"] = blk
+    deconv = upsample_method == "deconv"
+    for i, (k, cin, cout) in enumerate(_UP_SPECS + [_FINAL_SPEC]):
+        # transposed convs are IOHW, i.e. (cin, cout, k, k)
+        shape = (cin, cout, k, k) if deconv else (cout, cin, k, k)
+        scale, shift = affine(cout)
+        std = 1.0 if (deconv or i < 2) else 0.1
+        params[f"upsample_{i}"] = {"W": norm(shape, std), "INscale": scale, "INshift": shift}
+    return params
+
+
+def output_shape(h: int, w: int) -> tuple[int, int]:
+    """The net's spatial shape law: H -> 4*ceil(ceil((H+80)/2)/2) - 80; equal
+    to (h, w) whenever both divide 4, up to 3 px larger otherwise."""
+
+    def law(x: int) -> int:
+        half = -(-(x + 80) // 2)
+        quarter = -(-half // 2)
+        return 4 * (quarter - 20)
+
+    return law(h), law(w)
+
+
+def apply_with_features(
+    params: Params,
+    x: torch.Tensor,
+    upsample_method: str = "resize",
+    *,
+    fused_upsample: bool = True,
+    compute_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The naive NHWC forward, also returning the intermediate taps
+    (post-IN, pre-nonlinearity): init_0..2, res_0..4, up_0..1, pre_tanh.
+
+    `compute_dtype` casts the activations for the conv stack; IN statistics
+    and the tanh stay float32. Returns the pre-clip float output: uint8 in
+    gives float32 out here (apply's output_dtype does the clip)."""
+    if upsample_method not in UPSAMPLE_METHODS:
+        raise ValueError(f"upsample_method must be one of {UPSAMPLE_METHODS}")
+    orig_dtype = x.dtype
+    if compute_dtype is not None or orig_dtype == torch.uint8:
+        x = x.to(compute_dtype if compute_dtype is not None else torch.float32)
+    feats: Dict[str, torch.Tensor] = {}
+
+    h = L.reflect_pad(x, 40)
+    for i, (_k, _ci, _co, s) in enumerate(_INIT_SPECS):
+        blk = params[f"initconv_{i}"]
+        h = L.instance_norm(L.conv2d(h, blk["W"], stride=s), blk["INscale"], blk["INshift"])
+        feats[f"init_{i}"] = h
+        h = L.relu(h)
+
+    for i in range(_NUM_RESBLOCKS):
+        blk = params[f"resblock_{i}"]
+        r = L.conv2d(h, blk["W1"], padding="VALID")
+        r = L.relu(L.instance_norm(r, blk["INscale1"], blk["INshift1"]))
+        r = L.conv2d(r, blk["W2"], padding="VALID")
+        r = L.instance_norm(r, blk["INscale2"], blk["INshift2"])
+        h = r + h[:, 2:-2, 2:-2, :]
+        feats[f"res_{i}"] = h
+
+    for i in range(2):
+        blk = params[f"upsample_{i}"]
+        if upsample_method == "deconv":
+            u = L.transposed_conv2d(h, blk["W"], stride=2)
+        elif fused_upsample:
+            u = L.upsample_conv(h, blk["W"])
+        else:
+            u = L.upsample_conv_reference(h, blk["W"])
+        u = L.instance_norm(u, blk["INscale"], blk["INshift"])
+        feats[f"up_{i}"] = u
+        h = L.relu(u)
+
+    blk = params["upsample_2"]
+    if upsample_method == "deconv":
+        h = L.transposed_conv2d(h, blk["W"], stride=1)
+    else:
+        h = L.conv2d(h, blk["W"])
+    h = L.instance_norm(h, blk["INscale"], blk["INshift"])
+    feats["pre_tanh"] = h
+    y = L.scaled_tanh(h)
+    if orig_dtype != torch.uint8:
+        y = y.to(orig_dtype)
+    return y, feats
+
+
+def apply(
+    params: Params,
+    x: torch.Tensor,
+    upsample_method: str = "resize",
+    *,
+    fused_upsample: bool = True,
+    compute_dtype: torch.dtype | None = None,
+    output_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Forward pass: NHWC RGB [0, 255] -> [0, 255]. `output_dtype=uint8`
+    clips and casts on the device; uint8 input defaults to uint8 output,
+    float input to the same float."""
+    if output_dtype not in (None, torch.uint8):
+        raise ValueError(f"output_dtype must be None or torch.uint8, got {output_dtype}")
+    if output_dtype is None and x.dtype == torch.uint8:
+        output_dtype = torch.uint8
+    y, _ = apply_with_features(
+        params, x, upsample_method, fused_upsample=fused_upsample, compute_dtype=compute_dtype
+    )
+    if output_dtype == torch.uint8:
+        return y.clamp(0, 255).to(torch.uint8)
+    return y
+
+
+class TransformNet(nn.Module):
+    """The net as a module: one ParameterDict per block, so optimizers and
+    state dicts see `blocks.<block>.<var>`; `params()` gives the nested
+    dict that `apply` takes."""
+
+    def __init__(self, params: Params, upsample_method: str = "resize"):
+        super().__init__()
+        if upsample_method not in UPSAMPLE_METHODS:
+            raise ValueError(f"upsample_method must be one of {UPSAMPLE_METHODS}")
+        self.upsample_method = upsample_method
+        self.blocks = nn.ModuleDict(
+            {
+                blk: nn.ParameterDict({var: nn.Parameter(t.detach().clone()) for var, t in sub.items()})
+                for blk, sub in params.items()
+            }
+        )
+
+    def params(self) -> Params:
+        return {blk: dict(sub.items()) for blk, sub in self.blocks.items()}
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        *,
+        compute_dtype: torch.dtype | None = None,
+        output_dtype: torch.dtype | None = None,
+    ) -> torch.Tensor:
+        return apply(
+            self.params(), x, self.upsample_method,
+            compute_dtype=compute_dtype, output_dtype=output_dtype,
+        )
