@@ -6,11 +6,17 @@
 Phases, each raising on failure (the script then exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit, turns
                TF32 off for matmuls and cuDNN (full float32 everywhere)
-  2. build   — compiles the Gram kernel from faststyle_tpu_torch/csrc
+  2. build   — compiles the Gram kernel from faststyle_tpu_torch/csrc and
+               checks with cuobjdump that its tile kernels run on the tensor
+               cores (HMMA instructions in their SASS)
   3. kernel  — the kernel against its plain PyTorch version, forward and
-               gradient, at the b4@256 training shapes, two ragged shapes and
-               bf16; times the kernel, the plain version and torch.matmul
-               on the same features, beside the card's bound
+               gradient, at the b4@256 training shapes in float32 and bf16
+               and at ragged and unaligned shapes; float32 against a
+               float64 Gram, well inside 1xTF32's error; two calls bitwise
+               equal (determinism); times
+               the kernel, the plain version and torch.matmul on the same
+               features, eagerly and on the device alone (CUDA graph
+               replays), beside the card's bound and the launch plan
   4. slice   — `faststyle_tpu_torch.cli.train` for 6 steps at b4@256, full
                width (random VGG16 weights and synthetic images from a seed),
                with the Gram launch count; one GPU train step against the
@@ -21,9 +27,11 @@ Then the `kernels` JSON line, and last the `ok` line.
 from __future__ import annotations
 
 import csv
+import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -43,20 +51,36 @@ from faststyle_tpu_torch.utils import image_io
 REPO = Path(__file__).resolve().parent
 SEED = 0
 # H100 SXM data sheet (dense): the bound of a kernel is the larger of its
-# bytes over the memory rate and its operations over the peak for its type
+# bytes over the memory rate and its operations over the peak for its type.
+# The Gram's operations: the c(c+1)/2 distinct entries of the symmetric G,
+# 2*b*hw FLOP each, in 3 TF32 passes (float32 as 3xTF32) or 1 bf16 pass
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # FP32 non-tensor; bf16 tensor
+TENSOR_PEAK = {torch.float32: 495e12, torch.bfloat16: 989e12}  # TF32, bf16
+PASSES = {torch.float32: 3, torch.bfloat16: 1}
+FFMA_PEAK = 67e12  # FP32 outside the tensor cores: the bound the first kernel was held to
 TRAIN_SHAPES = [(4, 256, 256, 64), (4, 128, 128, 128), (4, 64, 64, 256), (4, 32, 32, 512)]
-CHECK_SHAPES = [(s, torch.float32) for s in TRAIN_SHAPES] + [
-    ((3, 17, 9, 64), torch.float32),
-    ((2, 33, 31, 48), torch.float32),
-    ((4, 128, 128, 128), torch.bfloat16),
+# (shape, dtype, storage offset in elements: 1 breaks the 16-byte alignment);
+# the training shapes in both dtypes, since the train step runs either
+CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TRAIN_SHAPES] + [
+    ((3, 17, 9, 64), torch.float32, 0),
+    ((2, 33, 31, 48), torch.float32, 0),
+    ((2, 17, 9, 64), torch.float32, 1),
+    ((2, 9, 11, 20), torch.bfloat16, 0),
+    ((3, 7, 5, 37), torch.bfloat16, 1),
 ]
+# in both dtypes: split (two launches); one launch, mostly off-diagonal tiles
+DETERMINISM_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[3]]
 # forward: float32 sums over hw in another order than cuBLAS -> 1e-4 of the
 # largest entry; gradient: the same matmul formula in f32 (1e-4), and for
 # bf16 one bf16 rounding of each entry after it (2^-8 ~ 4e-3 -> 1e-2)
 FWD_TOL = 1e-4
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# float32 against a float64 Gram: the kernel's error must stay under
+# 1/TF32_MARGIN of the error that rounding the input to TF32 alone gives
+# (what a 1xTF32 kernel would show at least), so 3xTF32 is what ran. On an
+# H100 the kernel reads 2-3e-6 of max |G| at the training shapes, 1xTF32
+# 8e-6 at conv1_2 (the closest) to 8e-5 at conv4_3
+TF32_MARGIN = 2
 
 
 def phase(name):
@@ -85,37 +109,122 @@ def build_phase() -> None:
     path, seconds = build.build("gram")
     gram._lib()  # load and bind
     print(f"built {path.relative_to(REPO)} in {seconds:.2f} s")
+    tensor_core_check(path)
 
 
-def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
+def tensor_core_check(lib_path: Path) -> None:
+    """Raises unless every Gram tile kernel in the built library has HMMA
+    (tensor-core) instructions in its SASS; prints each kernel's registers
+    and local-memory bytes (spills) from cuobjdump."""
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    run = lambda flag: subprocess.run([str(tool), flag, str(lib_path)], capture_output=True,
+                                      text=True, check=True, timeout=300).stdout
+    hmma = {}
+    for block in run("-sass").split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        hmma[name.strip()] = len(re.findall(r"\bHMMA\.", body))
+    tiles = {n: k for n, k in hmma.items() if "gram_tile_kernel" in n}
+    name = None  # cuobjdump prints a function's name, then (maybe on the next line) its usage
+    for line in run("-res-usage").splitlines():
+        if m := re.search(r"Function (\S+):", line):
+            name = m.group(1)
+        if (u := re.search(r"REG:(\d+).*?SHARED:(\d+).*?LOCAL:(\d+)", line)) and name and "gram_" in name:
+            print(f"  {name[name.index('gram_'):]}: registers {u[1]}, static shared {u[2]} B, "
+                  f"local (spills) {u[3]} B, HMMA {hmma.get(name, 0)}")
+            name = None
+    if not tiles or min(tiles.values()) == 0:
+        raise AssertionError(f"gram tile kernels without HMMA in their SASS: {tiles}")
+    print(f"tensor cores: {len(tiles)} gram tile kernels, each with HMMA "
+          f"({min(tiles.values())}-{max(tiles.values())} instructions)")
+
+
+@functools.cache
+def capture_stream() -> torch.cuda.Stream:
+    return torch.cuda.Stream()
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False, replays: int = 5) -> float:
+    """Mean ms per call of `fn` by CUDA events, after `warmup` calls.
+    Eager (graph=False): `iters` calls launched back to back, so a host
+    launch cost above the device time shows. Device alone (graph=True):
+    `iters` calls captured in one CUDA graph, timed over `replays` replays."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if not graph:
+        for _ in range(warmup):
+            fn()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    # warm up off the default stream, as capture requires, on one stream
+    # for every call: cuBLAS keeps a workspace per stream it has run on
+    side = capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(iters):
+            fn()
+    g.replay()
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        g.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def bound(shape, dtype) -> tuple[float, float]:
     """(ms to move the bytes, ms to do the operations) of one Gram call:
-    the input read once and the output written once; 2*b*hw*c^2 FLOP."""
+    the input read once and the output written once; passes * b*hw*c(c+1)
+    FLOP on the tensor cores."""
     b, h, w, c = shape
     nbytes = b * h * w * c * torch.finfo(dtype).bits // 8 + b * c * c * 4
-    flops = 2 * b * h * w * c * c
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    flops = PASSES[dtype] * b * h * w * c * (c + 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / TENSOR_PEAK[dtype] * 1e3
+
+
+def ffma_bound_ms(shape) -> float:
+    """The first kernel's bound: 2*b*hw*c^2 FLOP at the FP32 (FFMA) peak."""
+    b, h, w, c = shape
+    return 2 * b * h * w * c * c / FFMA_PEAK * 1e3
+
+
+def tf32_errors(x: torch.Tensor) -> tuple[float, float]:
+    """(the kernel's, 1xTF32's) largest error against a float64 Gram of the
+    float32 input x, over its largest entry. 1xTF32's is that of rounding x
+    to TF32 (to nearest, ties away) alone, the products summed in float64."""
+    b, h, w, c = x.shape
+    f = x.reshape(b, h * w, c)
+    hi = ((f.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    gram64 = lambda v: torch.matmul(v.double().transpose(1, 2), v.double()) / (h * w * c)
+    ref = gram64(f)
+    scale = ref.abs().max()
+    return (float((gram.gram_cuda(x).double() - ref).abs().max() / scale),
+            float((gram64(hi) - ref).abs().max() / scale))
+
+
+def storage(shape, dtype, offset: int, gen) -> torch.Tensor:
+    """A flat random buffer whose [offset:] holds a contiguous `shape`."""
+    return torch.randn(math.prod(shape) + offset, generator=gen, device="cuda").to(dtype)
 
 
 def kernel_phase() -> dict:
     phase("kernel")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = 0.0
-    totals = {"kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    totals = dict.fromkeys(
+        ("kernel_ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms", "ffma_bound_ms"), 0.0)
     bytes_ms = ops_ms = 0.0
-    for shape, dtype in CHECK_SHAPES:
-        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    sms = gram.num_sms(torch.cuda.current_device())
+    for shape, dtype, offset in CHECK_SHAPES:
+        buf = storage(shape, dtype, offset, gen)
+        x = buf[offset:].view(shape)
         got = gram.gram_cuda(x)
         ref = gram.gram_matrix_plain(x)
         torch.cuda.synchronize()
@@ -124,36 +233,53 @@ def kernel_phase() -> dict:
         if not (err <= FWD_TOL * scale):
             raise AssertionError(f"gram {shape} {dtype}: max |kernel - plain| {err} > {FWD_TOL} * {scale}")
         worst = max(worst, err)
+        tf32 = ""
+        if dtype == torch.float32 and shape in TRAIN_SHAPES:
+            e64, e1x = tf32_errors(x)
+            if not (e64 * TF32_MARGIN <= e1x):
+                raise AssertionError(f"gram {shape}: error against float64 {e64} of max |G| is not under "
+                                     f"1/{TF32_MARGIN} of 1xTF32's {e1x}")
+            tf32 = f" vs_float64: kernel={e64:.3e} 1xTF32={e1x:.3e} (of max |G|)"
 
         ct = torch.randn(shape[0], shape[3], shape[3], generator=gen, device="cuda")
-        xk = x.clone().requires_grad_()
-        (gram.gram_matrix(xk) * ct).sum().backward()
-        xp = x.clone().requires_grad_()
-        (gram.gram_matrix_plain(xp) * ct).sum().backward()
-        g_err = float((xk.grad.float() - xp.grad.float()).abs().max())
-        g_scale = float(xp.grad.float().abs().max())
+        grads = []
+        for fn in (gram.gram_matrix, gram.gram_matrix_plain):
+            leaf = buf.clone().requires_grad_()  # the gradient flows through the same unaligned view
+            (fn(leaf[offset:].view(shape)) * ct).sum().backward()
+            grads.append(leaf.grad[offset:].float())
+        g_err = float((grads[0] - grads[1]).abs().max())
+        g_scale = float(grads[1].abs().max())
         if not (g_err <= GRAD_TOL[dtype] * g_scale):
             raise AssertionError(f"gram grad {shape} {dtype}: {g_err} > {GRAD_TOL[dtype]} * {g_scale}")
 
         b, h, w, c = shape
+        if shape in DETERMINISM_SHAPES and not torch.equal(gram.gram_cuda(x), gram.gram_cuda(x)):
+            raise AssertionError(f"gram {shape} {dtype}: two calls on the same input differ")
+        p = gram.plan(b, h * w, c, dtype, sms)
         f = x.reshape(b, h * w, c)
         k_ms = cuda_time_ms(lambda: gram.gram_cuda(x))
+        k_dev = cuda_time_ms(lambda: gram.gram_cuda(x), graph=True)
         p_ms = cuda_time_ms(lambda: gram.gram_matrix_plain(x))
         l_ms = cuda_time_ms(lambda: torch.matmul(f.transpose(1, 2), f))
+        l_dev = cuda_time_ms(lambda: torch.matmul(f.transpose(1, 2), f), graph=True)
         t_bytes, t_ops = bound(shape, dtype)
         b_ms, b_by = max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
-        dt = str(dtype).removeprefix("torch.")
-        print(f"gram {list(shape)} {dt}: max_abs_err={err:.3e} (max |G| {scale:.3e}) "
-              f"grad_err={g_err:.3e} (max {g_scale:.3e}) kernel_ms={k_ms:.5f} plain_ms={p_ms:.5f} "
-              f"matmul_ms={l_ms:.5f} bound_ms={b_ms:.5f} ({b_by}) "
-              f"achieved={2 * b * h * w * c * c / k_ms / 1e9:.1f} TFLOP/s", flush=True)
-        if (shape, dtype) in [(s, torch.float32) for s in TRAIN_SHAPES]:
-            for key, val in zip(totals, (k_ms, p_ms, l_ms, b_ms)):
+        dt = str(dtype).removeprefix("torch.") + (f" offset {offset}" if offset else "")
+        print(f"gram {list(shape)} {dt}: max_abs_err={err:.3e} (max |G| {scale:.3e}){tf32} "
+              f"grad_err={g_err:.3e} (max {g_scale:.3e}) kernel_ms={k_ms:.5f} kernel_dev_ms={k_dev:.5f} "
+              f"plain_ms={p_ms:.5f} matmul_ms={l_ms:.5f} matmul_dev_ms={l_dev:.5f} "
+              f"bound_ms={b_ms:.5f} ({b_by}) bound_share={b_ms / k_dev:.3f} "
+              f"plan: splits={p.splits} chunk={p.chunk} tile={p.tile} blocks={p.blocks} "
+              f"launches_per_call={p.launches}", flush=True)
+        if dtype == torch.float32 and shape in TRAIN_SHAPES:
+            vals = (k_ms, k_dev, p_ms, l_ms, l_dev, b_ms, ffma_bound_ms(shape))
+            for key, val in zip(totals, vals):
                 totals[key] += val
             bytes_ms += t_bytes
             ops_ms += t_ops
-    print(f"gram, the four b4@256 style layers together (one train step's forward): "
-          + " ".join(f"{k}={v:.5f}" for k, v in totals.items()), flush=True)
+    print(f"gram, the four b4@256 float32 style layers together (one train step's forward): "
+          + " ".join(f"{k}={v:.5f}" for k, v in totals.items())
+          + f" bound_share={totals['bound_ms'] / totals['device_ms']:.3f}", flush=True)
     return {"max_abs_err": worst, "bound_by": "bytes" if bytes_ms > ops_ms else "operations", **totals}
 
 
@@ -307,10 +433,12 @@ def main() -> None:
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "kernel_ms": k["kernel_ms"],
+        "device_ms": k["device_ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
+        "library_device_ms": k["library_device_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

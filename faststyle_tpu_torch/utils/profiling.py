@@ -25,7 +25,7 @@ import torch
 
 # kernel-name fragments -> family, first match wins
 _FAMILIES = (
-    ("gram", ("gram_partial_kernel", "gram_reduce_kernel")),
+    ("gram", ("gram_tile_kernel", "gram_reduce_kernel")),
     ("optimizer", ("adam", "multi_tensor_apply")),
     ("conv", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd", "fft", "wgrad", "dgrad")),
     ("matmul", ("gemm", "cutlass", "ampere", "sm90")),
