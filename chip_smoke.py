@@ -6,26 +6,47 @@
 Phases, each raising on failure (the script then exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit, turns
                TF32 off for matmuls and cuDNN (full float32 everywhere)
-  2. build   — compiles the Gram kernel from faststyle_tpu_torch/csrc and
-               checks with cuobjdump that its tile kernels run on the tensor
-               cores (HMMA instructions in their SASS)
+  2. build   — compiles the Gram kernel (nvcc) and the host pack library
+               (c++) from faststyle_tpu_torch/csrc, together, and checks
+               with cuobjdump that the tile kernels run on the tensor cores
+               (HMMA instructions in their SASS)
   3. kernel  — the kernel against its plain PyTorch version, forward and
-               gradient, at the b4@256 training shapes in float32 and bf16
-               and at ragged and unaligned shapes; float32 against a
-               float64 Gram, well inside 1xTF32's error; two calls bitwise
-               equal (determinism); times
-               the kernel, the plain version and torch.matmul on the same
-               features, eagerly and on the device alone (CUDA graph
-               replays), beside the card's bound and the launch plan
+               gradient, at the b4@256 training shapes and the 474x712
+               slow-style shapes in float32 and bf16 and at ragged and
+               unaligned shapes; float32 against a float64 Gram, well
+               inside 1xTF32's error; two calls bitwise equal
+               (determinism); times the kernel, the plain version and
+               torch.matmul on the same features, eagerly and on the
+               device alone (CUDA graph replays), beside the card's bound
+               and the launch plan
   4. slice   — `faststyle_tpu_torch.cli.train` for 6 steps at b4@256, full
                width (random VGG16 weights and synthetic images from a seed),
                with the Gram launch count; one GPU train step against the
                same step on the CPU; steps/s of the train step
-Then the `kernels` JSON line, and last the `ok` line.
+  5. serve   — `faststyle_tpu_torch.cli.stylize_image` in float32 against
+               the seven TF oracle PNGs (SSIM >= 0.99); uint8 output within
+               one count of the CPU Stylizer; bfloat16 against float32
+               (SSIM >= 0.98); a TF1 checkpoint written by the port serves
+               bit-exact with the .npz; packed-u8 input, output and both
+               bit-exact with the plain uint8 path at 1080x1920 and 250x243,
+               resize and deconv; --input_dir over three images, two sizes
+  6. stream  — `faststyle_tpu_torch.cli.stylize_webcam` on 120 synthetic
+               1920x1080 frames in bfloat16 and float32 at pipeline depths 1
+               and 2, with --packed_fetch, at 512x512, and through a short
+               MJPG video: fps and p50/p99 latency; the forward's device-alone
+               ms per frame (CUDA-graph replays)
+  7. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
+               chicago.jpg at its native 474x712 (random VGG16), with the Gram
+               launch count; 5 steps in bfloat16; 3 steps at 256x256 on the
+               card against the CPU from the same start
+Every check of a phase prints its reading; a phase raises at its end if
+any of its checks failed. Then the `kernels` JSON line, and last the `ok`
+line.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import csv
 import functools
 import json
@@ -41,12 +62,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from faststyle_tpu_torch import inference
+from faststyle_tpu_torch.cli import slow_style as cli_slow
+from faststyle_tpu_torch.cli import stylize_image as cli_image
+from faststyle_tpu_torch.cli import stylize_webcam as cli_webcam
 from faststyle_tpu_torch.cli import train as cli_train
+from faststyle_tpu_torch.compat import tf1_checkpoint
 from faststyle_tpu_torch.inference import load_params
 from faststyle_tpu_torch.models import transform_net, vgg16
 from faststyle_tpu_torch.ops.cuda import build, gram
 from faststyle_tpu_torch.training import slow_style, train_step
 from faststyle_tpu_torch.utils import image_io
+from faststyle_tpu_torch.utils.metrics import ssim
 
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -59,9 +86,12 @@ TENSOR_PEAK = {torch.float32: 495e12, torch.bfloat16: 989e12}  # TF32, bf16
 PASSES = {torch.float32: 3, torch.bfloat16: 1}
 FFMA_PEAK = 67e12  # FP32 outside the tensor cores: the bound the first kernel was held to
 TRAIN_SHAPES = [(4, 256, 256, 64), (4, 128, 128, 128), (4, 64, 64, 256), (4, 32, 32, 512)]
+# slow-style's style layers on chicago.jpg at its native 474x712 (SAME
+# pools round up); no row count h*w is a multiple of 32
+SLOW_SHAPES = [(1, 474, 712, 64), (1, 237, 356, 128), (1, 119, 178, 256), (1, 60, 89, 512)]
 # (shape, dtype, storage offset in elements: 1 breaks the 16-byte alignment);
-# the training shapes in both dtypes, since the train step runs either
-CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TRAIN_SHAPES] + [
+# the training and slow-style shapes in both dtypes, since both paths run either
+CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TRAIN_SHAPES + SLOW_SHAPES] + [
     ((3, 17, 9, 64), torch.float32, 0),
     ((2, 33, 31, 48), torch.float32, 0),
     ((2, 17, 9, 64), torch.float32, 1),
@@ -70,6 +100,7 @@ CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TR
 ]
 # in both dtypes: split (two launches); one launch, mostly off-diagonal tiles
 DETERMINISM_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[3]]
+BUILDS = ("gram", "depth_to_space")  # csrc/gram.cu (the kernel), csrc/depth_to_space.cc (host)
 # forward: float32 sums over hw in another order than cuBLAS -> 1e-4 of the
 # largest entry; gradient: the same matmul formula in f32 (1e-4), and for
 # bf16 one bf16 rounding of each entry after it (2^-8 ~ 4e-3 -> 1e-2)
@@ -79,7 +110,9 @@ GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # 1/TF32_MARGIN of the error that rounding the input to TF32 alone gives
 # (what a 1xTF32 kernel would show at least), so 3xTF32 is what ran. On an
 # H100 the kernel reads 2-3e-6 of max |G| at the training shapes, 1xTF32
-# 8e-6 at conv1_2 (the closest) to 8e-5 at conv4_3
+# 8e-6 at conv1_2 (the closest) to 8e-5 at conv4_3. At slow-style's conv1_2
+# (337488 rows) 1xTF32's random rounding averages down to 2.8e-6 while the
+# kernel reads 3.8e-6, so those shapes are held on `tf32_offset` input
 TF32_MARGIN = 2
 
 
@@ -105,11 +138,16 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    """Builds the Gram kernel (nvcc) and the host pack library (c++), both
+    compilers started together."""
     phase("build")
-    path, seconds = build.build("gram")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = dict(zip(BUILDS, pool.map(build.build, BUILDS)))
     gram._lib()  # load and bind
-    print(f"built {path.relative_to(REPO)} in {seconds:.2f} s")
-    tensor_core_check(path)
+    inference._host_lib()
+    for name, (path, seconds) in built.items():
+        print(f"built {path.relative_to(REPO)} in {seconds:.2f} s")
+    tensor_core_check(built["gram"][0])
 
 
 def tensor_core_check(lib_path: Path) -> None:
@@ -209,6 +247,15 @@ def tf32_errors(x: torch.Tensor) -> tuple[float, float]:
             float((gram64(hi) - ref).abs().max() / scale))
 
 
+def tf32_offset(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32, then 0.4 of a TF32 ulp larger in magnitude: rounding
+    it to TF32 again shrinks every value by that same 0.4 ulp, an error that
+    does not average out over rows (1xTF32 is then off by ~5e-4 of max |G|
+    at any row count; 3xTF32 carries the offset in its low part)."""
+    bits = (x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+    return (bits + 0xCCC).view(torch.float32)
+
+
 def storage(shape, dtype, offset: int, gen) -> torch.Tensor:
     """A flat random buffer whose [offset:] holds a contiguous `shape`."""
     return torch.randn(math.prod(shape) + offset, generator=gen, device="cuda").to(dtype)
@@ -221,6 +268,7 @@ def kernel_phase() -> dict:
     totals = dict.fromkeys(
         ("kernel_ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms", "ffma_bound_ms"), 0.0)
     bytes_ms = ops_ms = 0.0
+    slow = {dt: [0.0, 0.0, 0.0] for dt in (torch.float32, torch.bfloat16)}  # device, matmul device, bound
     sms = gram.num_sms(torch.cuda.current_device())
     for shape, dtype, offset in CHECK_SHAPES:
         buf = storage(shape, dtype, offset, gen)
@@ -240,6 +288,17 @@ def kernel_phase() -> dict:
                 raise AssertionError(f"gram {shape}: error against float64 {e64} of max |G| is not under "
                                      f"1/{TF32_MARGIN} of 1xTF32's {e1x}")
             tf32 = f" vs_float64: kernel={e64:.3e} 1xTF32={e1x:.3e} (of max |G|)"
+        if dtype == torch.float32 and shape in SLOW_SHAPES:
+            # over 5e3-3e5 rows random TF32 rounding averages out below the
+            # kernel's own float32 summation error: hold it on an input whose
+            # rounding to TF32 does not average out
+            e64, e1x = tf32_errors(x)
+            s64, s1x = tf32_errors(tf32_offset(x))
+            if not (s64 * TF32_MARGIN <= s1x):
+                raise AssertionError(f"gram {shape}: error against float64 {s64} of max |G| on 0.4-ulp offsets "
+                                     f"is not under 1/{TF32_MARGIN} of 1xTF32's {s1x}")
+            tf32 = (f" vs_float64: kernel={e64:.3e} 1xTF32={e1x:.3e}, on 0.4-ulp offsets kernel={s64:.3e} "
+                    f"1xTF32={s1x:.3e} (of max |G|)")
 
         ct = torch.randn(shape[0], shape[3], shape[3], generator=gen, device="cuda")
         grads = []
@@ -277,10 +336,17 @@ def kernel_phase() -> dict:
                 totals[key] += val
             bytes_ms += t_bytes
             ops_ms += t_ops
+        if shape in SLOW_SHAPES:
+            slow[dtype] = [a + b for a, b in zip(slow[dtype], (k_dev, l_dev, b_ms))]
     print(f"gram, the four b4@256 float32 style layers together (one train step's forward): "
           + " ".join(f"{k}={v:.5f}" for k, v in totals.items())
           + f" bound_share={totals['bound_ms'] / totals['device_ms']:.3f}", flush=True)
-    return {"max_abs_err": worst, "bound_by": "bytes" if bytes_ms > ops_ms else "operations", **totals}
+    for dtype, (k_dev, l_dev, b_ms) in slow.items():
+        print(f"gram, the four slow-style {str(dtype).removeprefix('torch.')} style layers together (one "
+              f"slow-style step's forward): device_ms={k_dev:.5f} library_device_ms={l_dev:.5f} "
+              f"bound_ms={b_ms:.5f} bound_share={b_ms / k_dev:.3f}", flush=True)
+    return {"max_abs_err": worst, "bound_by": "bytes" if bytes_ms > ops_ms else "operations", **totals,
+            "slow_style_device_ms": slow[torch.float32][0]}
 
 
 def write_inputs(root: Path) -> tuple[Path, Path]:
@@ -418,18 +484,261 @@ def steps_per_sec(vgg_gpu, compute_dtype, iters: int = 10) -> float:
     print(f"train step b4@256 {name}: {rate:.3f} steps/s ({1e3 / rate:.3f} ms/step)")
     return rate
 
+ASSETS = REPO / "tests" / "assets"
+STARRY = REPO / "weights" / "starry_final.npz"
+CANDY = REPO / "weights" / "candy_final.npz"
+DECONV = ASSETS / "deconv_oracle_net.npz"
+# (name, model, upsample method, content image, crop or None, TF oracle PNG)
+ORACLES = [
+    ("starry crop256", STARRY, "resize", "chicago_crop256.png", None, "starry_crop256_tf_oracle.png"),
+    ("candy crop256", CANDY, "resize", "chicago_crop256.png", None, "candy_crop256_tf_oracle.png"),
+    ("starry 512", STARRY, "resize", "chicago_512.png", None, "starry_512_tf_oracle.png"),
+    ("starry 474x712", STARRY, "resize", "chicago.jpg", None, "starry_chicago_tf_oracle.png"),
+    ("candy 474x712", CANDY, "resize", "chicago.jpg", None, "candy_chicago_tf_oracle.png"),
+    ("deconv crop256", DECONV, "deconv", "chicago_crop256.png", None, "deconv_crop256_tf_oracle.png"),
+    ("deconv 250x243", DECONV, "deconv", "chicago_crop256.png", (250, 243), "deconv_ragged_tf_oracle.png"),
+]
+SSIM_MIN = 0.99  # float32 against the TF oracles
+SSIM_BF16_MIN = 0.98  # bfloat16 against float32
+# (width, height, precision, pipeline depth, packed fetch) of the synthetic streams
+STREAMS = [
+    (1920, 1080, "bfloat16", 1, False),
+    (1920, 1080, "bfloat16", 2, False),
+    (1920, 1080, "float32", 1, False),
+    (1920, 1080, "float32", 2, False),
+    (1920, 1080, "bfloat16", 1, True),
+    (1920, 1080, "bfloat16", 2, True),
+    (1920, 1080, "float32", 1, True),
+    (512, 512, "bfloat16", 1, False),
+    (512, 512, "bfloat16", 1, True),
+]
+STREAM_FRAMES = 120
+SLOW_STEPS = 20
+
+
+class Checks:
+    """A phase's checks: each prints its reading; `done` raises if any failed."""
+
+    def __init__(self, name: str):
+        self.name, self.failed = name, []
+
+    def __call__(self, ok: bool, msg: str) -> bool:
+        print(("  ok   " if ok else "  FAIL ") + msg, flush=True)
+        if not ok:
+            self.failed.append(msg)
+        return ok
+
+    def done(self) -> None:
+        if self.failed:
+            raise AssertionError(f"{self.name}: {len(self.failed)} check(s) failed: " + " | ".join(self.failed))
+
+
+def stylize_cli(root: Path, model: Path, method: str, img_path: Path, precision: str = "float32") -> np.ndarray:
+    """One run of cli.stylize_image on the card; returns the PNG it wrote."""
+    out = root / f"out_{len(list(root.glob('out_*')))}.png"
+    cli_image.main(["--input_img_path", str(img_path), "--output_img_path", str(out), "--model_path", str(model),
+                    "--upsample_method", method, "--precision", precision])
+    return image_io.imread(out)
+
+
+def count_diff(a: np.ndarray, b: np.ndarray) -> tuple[int, int]:
+    """(largest |a - b| in counts, number of values that differ)."""
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return int(d.max()), int((d > 0).sum())
+
+
+def serve_phase() -> None:
+    phase("serve")
+    check = Checks("serve")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        root = Path(tmp)
+        inputs, outs = {}, {}
+        for name, model, method, content, crop, oracle in ORACLES:
+            src = ASSETS / content
+            if crop is not None:
+                src = root / f"content_{crop[0]}x{crop[1]}.png"
+                image_io.imwrite(src, image_io.imread(ASSETS / content)[: crop[0], : crop[1]])
+            inputs[name] = src
+            t0 = time.perf_counter()
+            out = outs[name] = stylize_cli(root, model, method, src)
+            wall = time.perf_counter() - t0
+            golden = image_io.imread(ASSETS / oracle)
+            score = ssim(out, golden) if out.shape == golden.shape else float("nan")
+            check(score >= SSIM_MIN, f"cli.stylize_image float32 {name}: output {out.shape}, oracle {golden.shape}, "
+                                     f"SSIM {score:.5f} (need >= {SSIM_MIN}); {wall:.3f} s wall")
+
+        for name, model, method in (("starry crop256", STARRY, "resize"), ("deconv 250x243", DECONV, "deconv")):
+            cpu = inference.Stylizer(model, upsample_method=method, device="cpu")(image_io.imread(inputs[name]))
+            worst, n = count_diff(outs[name], cpu)
+            check(worst <= 1, f"{name} card vs the CPU float32 Stylizer: max {worst} count(s), "
+                              f"{n} of {cpu.size} values differ")
+
+        for name, model in (("starry crop256", STARRY), ("starry 474x712", STARRY)):
+            bf = stylize_cli(root, model, "resize", inputs[name], "bfloat16")
+            score = ssim(bf, outs[name])
+            check(score >= SSIM_BF16_MIN, f"{name} bfloat16 vs float32: SSIM {score:.5f} (need >= {SSIM_BF16_MIN})")
+
+        prefix = root / "tf1" / "starry_final.ckpt"
+        tf1_checkpoint.save_transform_net_params(inference.load_params_numpy(STARRY), prefix)
+        out = stylize_cli(root, prefix, "resize", inputs["starry crop256"])
+        _, n = count_diff(out, outs["starry crop256"])
+        check(n == 0, f"starry crop256 from the port's TF1 checkpoint vs the .npz: {n} values differ (need 0)")
+
+        packed_check(check)
+
+        in_dir = root / "dir"
+        in_dir.mkdir()
+        crop256 = image_io.imread(ASSETS / "chicago_crop256.png")
+        image_io.imwrite(in_dir / "a.png", crop256)
+        image_io.imwrite(in_dir / "b.png", crop256[::-1])
+        image_io.imwrite(in_dir / "c.png", crop256[:250, :243])
+        done = cli_image.main(["--input_dir", str(in_dir), "--output_dir", str(root / "dir_out"),
+                               "--model_path", str(STARRY)])
+        got = {n: image_io.imread(root / "dir_out" / f"styled_{n}.png") for n in "abc"}
+        shapes = {n: g.shape for n, g in got.items()}
+        worst_a, _ = count_diff(got["a"], outs["starry crop256"])
+        single_c = inference.Stylizer(STARRY, output_uint8=True)(crop256[:250, :243])
+        worst_c, _ = count_diff(got["c"], single_c)
+        check(done == 3 and shapes == {"a": (256, 256, 3), "b": (256, 256, 3), "c": (252, 244, 3)}
+              and worst_a <= 1 and worst_c <= 1,
+              f"--input_dir: {done} images of two sizes {shapes}; within {max(worst_a, worst_c)} count(s) of "
+              "single-image runs")
+    check.done()
+
+
+def packed_check(check: Checks) -> None:
+    """Packed-u8 input, output and both against the plain uint8 path on the
+    card: bit-exact at 1080x1920 and 250x243, resize and deconv (and resize
+    in bfloat16 at 1080x1920)."""
+    frames = {
+        "1080x1920": image_io.resize_to(image_io.imread(ASSETS / "chicago.jpg"), 1080, 1920),
+        "250x243": np.ascontiguousarray(image_io.imread(ASSETS / "chicago_crop256.png")[:250, :243]),
+    }
+    for model, method in ((STARRY, "resize"), (DECONV, "deconv")):
+        params = inference.load_params(model)
+        for size, frame in frames.items():
+            dtypes = (None, torch.bfloat16) if method == "resize" and size == "1080x1920" else (None,)
+            oh, ow = transform_net.output_shape(*frame.shape[:2])
+            for dtype in dtypes:
+                kw = dict(params=params, upsample_method=method, compute_dtype=dtype)
+                plain = inference.Stylizer(output_uint8=True, **kw).stylize_batch(frame[None]).cpu().numpy()
+                for pin, pout in ((True, False), (False, True), (True, True)):
+                    raw = inference.Stylizer(packed_input=pin, packed_output=pout, **kw).stylize_batch(frame[None])
+                    got = inference.unpack_u8_host(raw.cpu().numpy(), oh, ow) if pout else raw.cpu().numpy()
+                    _, n = count_diff(got, plain) if got.shape == plain.shape else (None, -1)
+                    check(n == 0, f"packed {'in' if pin else '--'}/{'out' if pout else '---'} {method} {size} "
+                                  f"{'bfloat16' if dtype else 'float32'}: {tuple(raw.shape)} raw, "
+                                  f"{n} values differ from the plain uint8 path (need 0)")
+
+
+def stream_reading(r: dict) -> str:
+    ms = lambda v: "none" if v is None else f"{v:.3f} ms"
+    return f"{r['frames']} frames, {r['fps']:.3f} fps, p50 {ms(r['p50_ms'])}, p99 {ms(r['p99_ms'])}"
+
+
+def stream_phase() -> None:
+    phase("stream")
+    check = Checks("stream")
+    base = ["--model_path", str(STARRY), "--no_display", "--report_latency"]
+    for w, h, precision, depth, packed in STREAMS:
+        args = base + ["--num_synthetic_frames", str(STREAM_FRAMES), "--resolution", str(w), str(h),
+                       "--precision", precision, "--pipeline_depth", str(depth)] + (["--packed_fetch"] if packed else [])
+        r = cli_webcam.main(args)
+        check(r["frames"] == STREAM_FRAMES and r["fps"] > 0 and r["p99_ms"] is not None,
+              f"stream {w}x{h} {precision} depth {depth}{' packed' if packed else ''}: {stream_reading(r)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
+        import cv2
+
+        root = Path(tmp)
+        frames = list(cli_webcam.synthetic_frames(40, 1080, 1920))
+        fh, fw = frames[0].shape[:2]
+        writer = cv2.VideoWriter(str(root / "in.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 30.0, (fw, fh))
+        for f in frames:
+            writer.write(f)
+        writer.release()
+        r = cli_webcam.main(base + ["--video_path", str(root / "in.avi"), "--max_frames", "30",
+                                    "--output_path", str(root / "out.avi")])
+        size = (root / "out.avi").stat().st_size if (root / "out.avi").exists() else 0
+        check(r["frames"] == 30 and size > 0, f"video {fw}x{fh} MJPG through --video_path --max_frames 30: "
+                                              f"{stream_reading(r)}, output {size} bytes")
+    # the forward alone on the device: uint8 frame in, uint8 (or packed) out
+    for w, h, precision, packed in ((1920, 1080, "bfloat16", False), (1920, 1080, "float32", False),
+                                    (1920, 1080, "bfloat16", True), (1920, 1080, "float32", True),
+                                    (512, 512, "bfloat16", False), (512, 512, "float32", False)):
+        s = inference.Stylizer(STARRY, compute_dtype=torch.bfloat16 if precision == "bfloat16" else None,
+                               output_uint8=True, packed_input=packed, packed_output=packed)
+        frame = next(cli_webcam.synthetic_frames(1, h, w))[None]
+        x = torch.from_numpy(inference.pack_u8_host(frame) if packed else frame).cuda()
+        fn = (lambda: s.stylize_device(x, (h, w))) if packed else (lambda: s.stylize_device(x))
+        dev = cuda_time_ms(fn, iters=10, graph=True, replays=3)
+        eager = cuda_time_ms(fn, iters=10)
+        print(f"forward {w}x{h} {precision}{' packed' if packed else ''}: device-alone {dev:.5f} ms/frame, "
+              f"eager {eager:.5f} ms/frame", flush=True)
+    check.done()
+
+
+def slow_style_phase() -> dict:
+    phase("slow")
+    check = Checks("slow")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slow_") as tmp:
+        root = Path(tmp)
+        vgg_path, _ = write_inputs(root)
+        style = REPO / "style_images" / "starry_night_crop.jpg"
+        base = ["--style_img_path", str(style), "--vgg_path", str(vgg_path), "--output_img_path", str(root / "o.jpg")]
+        gram.GramFunction.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, history = cli_slow.main(base + ["--cont_img_path", str(ASSETS / "chicago.jpg"),
+                                             "--num_steps_break", str(SLOW_STEPS)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gram.GramFunction.launches
+        losses = [v for _, v in history]
+        print(f"cli.slow_style: {SLOW_STEPS} steps at 474x712 float32 in {wall:.3f} s wall (targets included), "
+              f"losses {history}, output {out.shape}")
+        want = 4 * SLOW_STEPS + 4  # four style layers per step, plus the target Grams once
+        check(launches >= want, f"gram launches on the slow-style path: {launches} (need >= {want})")
+        check(all(math.isfinite(v) for v in losses) and len(losses) >= 2 and losses[-1] < losses[0],
+              f"slow-style losses finite and falling: {losses}")
+
+        out, history = cli_slow.main(base + ["--cont_img_path", str(ASSETS / "chicago.jpg"),
+                                             "--num_steps_break", "5", "--precision", "bfloat16"])
+        check(all(math.isfinite(v) for _, v in history), f"slow-style bfloat16, 5 steps: losses {history}")
+
+        content = image_io.imread(ASSETS / "chicago_crop256.png").astype(np.float32)
+        style_img = image_io.imresize(image_io.imread(style), 0.25).astype(np.float32)
+        init = np.random.default_rng(SEED).uniform(0, 255, (1, 256, 256, 3)).astype(np.float32)
+        logs = {}
+        for dev in ("cuda", "cpu"):
+            logs[dev] = []
+            slow_style.optimize(
+                vgg16.load_npz(vgg_path, device=dev), content, style_img,
+                content_weights={"conv3_3": 1.0}, style_weights=dict.fromkeys(("conv1_2", "conv2_2", "conv3_3",
+                                                                               "conv4_3"), 5.0),
+                num_steps=3, log_every=1, init=init, log_fn=lambda s, v, d=dev: logs[d].append(v),
+            )
+        rel = [abs(a - b) / abs(b) for a, b in zip(logs["cuda"], logs["cpu"])]
+        check(len(rel) == 3 and max(rel) <= 1e-3, f"slow-style 3 steps at 256x256, card vs CPU from one start: "
+                                                  f"cuda {logs['cuda']} cpu {logs['cpu']}, relative {rel} (need <= 1e-3)")
+    check.done()
+    return {"launches": launches}
+
 
 def main() -> None:
     device_phase()
     build_phase()
     k = kernel_phase()
     s = slice_phase()
+    serve_phase()
+    stream_phase()
+    ss = slow_style_phase()
+    print(f"gram launches: {s['launches']} on the train slice, {ss['launches']} on slow-style")
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
         "source": "faststyle_tpu_torch/csrc/gram.cu",
         "replaces": "faststyle_tpu/ops/pallas/gram.py:22",
-        "launches": s["launches"],
+        "launches": s["launches"] + ss["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "kernel_ms": k["kernel_ms"],
@@ -439,6 +748,7 @@ def main() -> None:
         "bound_by": k["bound_by"],
         "library_ms": k["library_ms"],
         "library_device_ms": k["library_device_ms"],
+        "slow_style_device_ms": k["slow_style_device_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -9,6 +9,7 @@ recipe: batch 4, 256x256, Adam 1e-3, 2 epochs, style weights 5x4), plus
 `--device {cuda,cpu}` (default cuda; there is no silent CPU fallback).
 `--image_dir` is the data source; `--train_dir` (TFRecords),
 `--data_parallel` and `--debug_nans` exit with a "not yet ported" message.
+TF32 is off (`full_float32`): `--precision float32` is full float32.
 """
 
 from __future__ import annotations
@@ -101,6 +102,9 @@ def setup_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from faststyle_tpu_torch import full_float32
+
+    full_float32()
     args = setup_parser().parse_args(argv)
     for flag, msg in _NOT_PORTED.items():
         if getattr(args, flag):

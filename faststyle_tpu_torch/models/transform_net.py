@@ -15,8 +15,10 @@ Input NHWC, RGB in [0, 255], any H and W; output in [0, 255] with the shape
 law of `output_shape`. Params are `{block: {var: tensor}}` in torch layouts
 (OIHW convs, IOHW transposed convs; see `convert`) under the JAX package's
 block and variable names. The JAX package's packed space-to-depth layout is
-a TPU matrix-unit trick that computes the same function, so it is not
-ported.
+a TPU matrix-unit trick that computes the same function, so its walk is not
+ported; its packed-u8 I/O contract is (`apply_packed`): the naive walk
+between a device-side unpack of host-packed input and a pack of the uint8
+output.
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ _UP_SPECS = [(3, 64, 32), (3, 32, 16)]
 _FINAL_SPEC = (9, 16, 3)
 
 UPSAMPLE_METHODS = ("resize", "deconv")
+LAYOUTS = ("nhwc", "packed_u8")
+_PAD = 40  # reflect pad per side before initconv_0
+_P = 4  # packed-u8 cell edge: [.., 4x4 pixels x 3 channels = 48 bytes]
 
 
 def init_params(
@@ -104,15 +109,27 @@ def apply_with_features(
 
     `compute_dtype` casts the activations for the conv stack; IN statistics
     and the tanh stay float32. Returns the pre-clip float output: uint8 in
-    gives float32 out here (apply's output_dtype does the clip)."""
+    gives float32 out here (apply's output_dtype does the clip).
+    `fused_upsample` runs both upsample variants in their exact phase
+    (sub-pixel) forms, forward convolutions only; False runs the literal
+    resize-then-conv or transposed convolutions, the oracles of those."""
     if upsample_method not in UPSAMPLE_METHODS:
         raise ValueError(f"upsample_method must be one of {UPSAMPLE_METHODS}")
     orig_dtype = x.dtype
     if compute_dtype is not None or orig_dtype == torch.uint8:
         x = x.to(compute_dtype if compute_dtype is not None else torch.float32)
-    feats: Dict[str, torch.Tensor] = {}
+    y, feats = _walk_padded(params, L.reflect_pad(x, _PAD), upsample_method, fused_upsample)
+    if orig_dtype != torch.uint8:
+        y = y.to(orig_dtype)
+    return y, feats
 
-    h = L.reflect_pad(x, 40)
+
+def _walk_padded(
+    params: Params, h: torch.Tensor, upsample_method: str, fused_upsample: bool = True
+) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The walk after the reflect pad: the net on an already padded NHWC
+    tensor in its compute dtype; returns the scaled-tanh output and taps."""
+    feats: Dict[str, torch.Tensor] = {}
     for i, (_k, _ci, _co, s) in enumerate(_INIT_SPECS):
         blk = params[f"initconv_{i}"]
         h = L.instance_norm(L.conv2d(h, blk["W"], stride=s), blk["INscale"], blk["INshift"])
@@ -131,7 +148,7 @@ def apply_with_features(
     for i in range(2):
         blk = params[f"upsample_{i}"]
         if upsample_method == "deconv":
-            u = L.transposed_conv2d(h, blk["W"], stride=2)
+            u = L.deconv_upsample(h, blk["W"]) if fused_upsample else L.transposed_conv2d(h, blk["W"], stride=2)
         elif fused_upsample:
             u = L.upsample_conv(h, blk["W"])
         else:
@@ -142,15 +159,12 @@ def apply_with_features(
 
     blk = params["upsample_2"]
     if upsample_method == "deconv":
-        h = L.transposed_conv2d(h, blk["W"], stride=1)
+        h = L.deconv_same_s1(h, blk["W"]) if fused_upsample else L.transposed_conv2d(h, blk["W"], stride=1)
     else:
         h = L.conv2d(h, blk["W"])
     h = L.instance_norm(h, blk["INscale"], blk["INshift"])
     feats["pre_tanh"] = h
-    y = L.scaled_tanh(h)
-    if orig_dtype != torch.uint8:
-        y = y.to(orig_dtype)
-    return y, feats
+    return L.scaled_tanh(h), feats
 
 
 def apply(
@@ -175,6 +189,72 @@ def apply(
     if output_dtype == torch.uint8:
         return y.clamp(0, 255).to(torch.uint8)
     return y
+
+
+def unpack_u8(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """[N, Hb, Wb, 48] packed uint8 -> [N, height, width, 3], cropping the
+    grid's tails: src[by, bx, (dy*4+dx)*3+ch] == dst[4by+dy, 4bx+dx, ch].
+    A view and a permute; the crop leaves it strided."""
+    n, hb, wb, cc = x.shape
+    if cc != _P * _P * 3 or height > hb * _P or width > wb * _P:
+        raise ValueError(f"packed shape {tuple(x.shape)} cannot hold {height}x{width} RGB")
+    full = x.reshape(n, hb, wb, _P, _P, 3).permute(0, 1, 3, 2, 4, 5).reshape(n, hb * _P, wb * _P, 3)
+    return full[:, :height, :width]
+
+
+def pack_u8(y: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, 3] uint8 -> [N, ceil(H/4), ceil(W/4), 48], zero tails: the
+    inverse of unpack_u8, contiguous."""
+    n, h, w, c = y.shape
+    hb, wb = -(-h // _P), -(-w // _P)
+    if (hb * _P, wb * _P) != (h, w):
+        y = torch.nn.functional.pad(y, (0, 0, 0, wb * _P - w, 0, hb * _P - h))
+    return y.reshape(n, hb, _P, wb, _P, c).permute(0, 1, 3, 2, 4, 5).reshape(n, hb, wb, _P * _P * c)
+
+
+def apply_packed(
+    params: Params,
+    x: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype | None = None,
+    output_dtype: torch.dtype | None = None,
+    output_layout: str = "nhwc",
+    input_layout: str = "nhwc",
+    input_hw: tuple[int, int] | None = None,
+    upsample_method: str = "resize",
+) -> torch.Tensor:
+    """The forward with packed-u8 I/O (the JAX `apply_packed`'s tensors,
+    not its TPU layout walk).
+
+    input_layout='packed_u8': x is [N, ceil((h+80)/4), ceil((w+80)/4), 48]
+    uint8, already reflect-padded by 40 and packed on the host
+    (`inference.pack_u8_host`); `input_hw` = (h, w) is the image's extent.
+    output_layout='packed_u8' (implies uint8 output): the clipped uint8
+    output [N, OH, OW, 3] packed to [N, ceil(OH/4), ceil(OW/4), 48] with
+    zero tails, (OH, OW) = output_shape(h, w).
+
+    Between the two, the naive walk of `apply` on the same values in the
+    same layout: the unpacked input is made contiguous in the compute dtype
+    before the first conv, as `apply`'s reflect pad leaves it, so the result
+    is bit-exact with `apply` on the unpacked uint8 frames."""
+    if input_layout not in LAYOUTS or output_layout not in LAYOUTS:
+        raise ValueError(f"layouts must be in {LAYOUTS}, got {input_layout!r} -> {output_layout!r}")
+    if upsample_method not in UPSAMPLE_METHODS:
+        raise ValueError(f"upsample_method must be one of {UPSAMPLE_METHODS}")
+    if output_dtype not in (None, torch.uint8):
+        raise ValueError(f"output_dtype must be None or torch.uint8, got {output_dtype}")
+    if output_layout == "packed_u8" and output_dtype is None and x.dtype != torch.uint8:
+        raise ValueError("packed_u8 output implies uint8 output")
+    if input_layout == "nhwc":
+        y = apply(params, x, upsample_method, compute_dtype=compute_dtype, output_dtype=output_dtype)
+    else:  # uint8 in, so uint8 out
+        if x.dtype != torch.uint8 or input_hw is None:
+            raise ValueError("packed_u8 input is uint8 and needs input_hw=(h, w)")
+        h, w = input_hw
+        dtype = compute_dtype if compute_dtype is not None else torch.float32
+        padded = unpack_u8(x, h + 2 * _PAD, w + 2 * _PAD).to(dtype).contiguous()
+        y = _walk_padded(params, padded, upsample_method)[0].clamp(0, 255).to(torch.uint8)
+    return pack_u8(y) if output_layout == "packed_u8" else y
 
 
 class TransformNet(nn.Module):

@@ -1,11 +1,15 @@
-"""Build a CUDA source of the package into a shared library and load it.
+"""Build a C/C++ source of the package into a shared library and load it.
 
-`nvcc` compiles the `.cu` file under `faststyle_tpu_torch/csrc/` into
-`build/faststyle_tpu_torch/<name>-<hash>.so` at the repo root on first use,
-keyed on a hash of the source and the flags, so a fresh checkout builds
-itself and an edited source never loads a stale library. The library has a
-plain C interface and is loaded with `ctypes`: no torch headers, so a build
-takes seconds, not minutes.
+Two routes, by the source's suffix under `faststyle_tpu_torch/csrc/`:
+  * `<name>.cu`, a CUDA kernel: `nvcc` for sm_90a;
+  * `<name>.cc`, host code (the packed-u8 pack/unpack): the host C++
+    compiler (`$CXX`, else `c++`), `-O3 -fPIC -shared`.
+Either compiles into `build/faststyle_tpu_torch/<name>-<hash>.so` at the
+repo root on first use, keyed on a hash of the source and the flags, so a
+fresh checkout builds itself and an edited source never loads a stale
+library. The libraries have a plain C interface and are loaded with
+`ctypes`: no torch headers, so a build takes seconds, not minutes. A
+failed build raises; nothing falls back.
 
 Nothing here runs at import; a machine without `nvcc` imports the package
 and runs every CPU path.
@@ -30,6 +34,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
 
 
 def nvcc_path() -> str:
@@ -43,17 +48,41 @@ def nvcc_path() -> str:
     return found
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: $CXX, else `c++` on PATH."""
+    found = shutil.which(os.environ.get("CXX") or "c++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler found (set CXX); the host library cannot be built")
+    return found
+
+
+def source(name: str) -> Path:
+    """csrc/<name>.cu or csrc/<name>.cc, whichever exists."""
+    for suffix in (".cu", ".cc"):
+        path = CSRC / f"{name}{suffix}"
+        if path.is_file():
+            return path
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cc")
+
+
+def _command(src: Path, out: str) -> list[str]:
+    if src.suffix == ".cu":
+        return [nvcc_path(), *NVCC_FLAGS, "-o", out, str(src)]
+    return [cxx_path(), *CXX_FLAGS, "-o", out, str(src)]
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from csrc/<name>.cu lives for this source."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    """Where the library built from csrc/<name>.{cu,cc} lives for this source."""
+    src = source(name)
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS if src.suffix == ".cu" else CXX_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> tuple[Path, float]:
-    """Compile csrc/<name>.cu unless this source's library exists; returns
-    (path, seconds spent compiling). The library is written under a temp
-    name and renamed, so concurrent processes never load a partial file."""
+    """Compile csrc/<name>.{cu,cc} unless this source's library exists;
+    returns (path, seconds spent compiling). The library is written under a
+    temp name and renamed, so concurrent processes never load a partial file."""
     out = library_path(name)
     if out.exists():
         return out, 0.0
@@ -62,10 +91,10 @@ def build(name: str) -> tuple[Path, float]:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        src = source(name)
+        proc = subprocess.run(_command(src, tmp), capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"building {src.name} failed:\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -75,6 +104,6 @@ def build(name: str) -> tuple[Path, float]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu's library, once per process."""
+    """Build (if needed) and load csrc/<name>'s library, once per process."""
     path, _ = build(name)
     return ctypes.CDLL(str(path))

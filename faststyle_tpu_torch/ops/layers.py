@@ -167,6 +167,23 @@ def upsample_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _depth_to_space2(conv2d(xp, upsample_phase_kernel(w), padding="VALID"))
 
 
+def deconv_upsample(x: torch.Tensor, w_iohw: torch.Tensor) -> torch.Tensor:
+    """Fused stride-2 SAME transposed conv (3x3): the exact phase
+    decomposition of transposed_conv2d(x, w, 2) — one 2x2 conv with 4*cout
+    outputs over x zero-padded by one at the low side, then depth-to-space.
+    A forward convolution: deterministic on the card, where cuDNN may run a
+    transposed conv (a data gradient) with atomic, run-to-run varying sums."""
+    xp = F.pad(x, (0, 0, 1, 0, 1, 0))
+    return _depth_to_space2(conv2d(xp, deconv_phase_kernel(w_iohw), padding="VALID"))
+
+
+def deconv_same_s1(x: torch.Tensor, w_iohw: torch.Tensor) -> torch.Tensor:
+    """Stride-1 SAME transposed conv as the SAME conv with the adjoint
+    kernel (flipped, in/out swapped): transposed_conv2d(x, w, 1) exactly,
+    as a forward convolution."""
+    return conv2d(x, w_iohw.flip(2, 3).transpose(0, 1))
+
+
 # ---------------------------------------------------------------------------
 # Normalization / activations
 # ---------------------------------------------------------------------------

@@ -190,19 +190,23 @@ def test_3xtf32_arithmetic_meets_the_forward_tolerance(rng, rows, c, relu, diago
 
 def test_import_needs_no_nvcc_or_cuda(tmp_path):
     """Importing the port (and computing on the CPU) builds nothing: no
-    compiler on PATH, no CUDA, and no build directory appears."""
+    compiler on PATH, no CUDA, no call of `build.build` (the host library
+    builds only when a pack or unpack runs), and no Gram library appears."""
     code = (
         "import torch\n"
-        "from faststyle_tpu_torch import losses\n"
-        "from faststyle_tpu_torch.ops.cuda import build, gram\n"
+        "from faststyle_tpu_torch.ops.cuda import build\n"
+        "def refuse(name): raise AssertionError(f'built {name} at import')\n"
+        "build.build = refuse\n"
+        "from faststyle_tpu_torch import inference, losses\n"
+        "from faststyle_tpu_torch.ops.cuda import gram\n"
         "x = torch.ones(1, 4, 4, 8)\n"
         "assert losses.gram_matrix(x).shape == (1, 8, 8)\n"
         "print(build.BUILD_DIR)\n"
     )
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME=str(tmp_path / "none"),
                CUDA_VISIBLE_DEVICES="")
-    before = set((ROOT / "build").glob("faststyle_tpu_torch/*.so"))
+    before = set((ROOT / "build").glob("faststyle_tpu_torch/gram-*.so"))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert set((ROOT / "build").glob("faststyle_tpu_torch/*.so")) == before
+    assert set((ROOT / "build").glob("faststyle_tpu_torch/gram-*.so")) == before

@@ -73,6 +73,17 @@ def test_transposed_conv2d(rng, stride, k, size):
     _close(got, JL.transposed_conv2d(jnp.asarray(x), jnp.asarray(w_hwoi), stride))
 
 
+@pytest.mark.parametrize("stride,k,size", [(2, 3, 6), (2, 3, 7), (1, 9, 8)])
+def test_deconv_as_forward_conv(rng, stride, k, size):
+    """The deconv net's forward-conv forms (phase decomposition at stride 2,
+    the adjoint kernel at stride 1) against the JAX transposed conv."""
+    x = rng.standard_normal((2, size, size + 2, 4)).astype(np.float32)
+    w_hwoi = rng.standard_normal((k, k, 3, 4)).astype(np.float32)
+    fn = TL.deconv_upsample if stride == 2 else TL.deconv_same_s1
+    got = fn(_t(x), convert.kernel_to_torch(w_hwoi))
+    _close(got, JL.transposed_conv2d(jnp.asarray(x), jnp.asarray(w_hwoi), stride))
+
+
 def test_upsample_phase_kernel(rng):
     w = rng.standard_normal((3, 3, 4, 5)).astype(np.float32)
     got = TL.upsample_phase_kernel(convert.kernel_to_torch(w))

@@ -79,6 +79,18 @@ def test_resize_upsample_reference_formulation(rng, starry_params):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=2e-3)
 
 
+def test_deconv_transposed_formulation(rng):
+    """The literal transposed convs (fused_upsample=False), the oracle of the
+    deconv net's phase forms, against the JAX walk at a ragged size."""
+    np_params = jax_load_params(ROOT / "tests/assets/deconv_oracle_net.npz")
+    params = convert.params_from_numpy(np_params, device="cpu")
+    x = rng.uniform(0, 255, (1, 30, 37, 3)).astype(np.float32)
+    ref = np.asarray(JT.apply(np_params, jnp.asarray(x), "deconv", layout="naive"))
+    for fused in (False, True):
+        got = TT.apply(params, torch.from_numpy(x), "deconv", fused_upsample=fused)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=2e-3, err_msg=f"fused={fused}")
+
+
 @pytest.mark.parametrize(
     "method,path", [("resize", "weights/starry_final.npz"), ("deconv", "tests/assets/deconv_oracle_net.npz")]
 )
