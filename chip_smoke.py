@@ -6,10 +6,10 @@
 Phases, each raising on failure (the script then exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit, turns
                TF32 off for matmuls and cuDNN (full float32 everywhere)
-  2. build   — compiles the Gram kernel (nvcc) and the host pack library
-               (c++) from faststyle_tpu_torch/csrc, together, and checks
-               with cuobjdump that the tile kernels run on the tensor cores
-               (HMMA instructions in their SASS)
+  2. build   — compiles the Gram kernel (nvcc), the host pack library and
+               the TFRecord codec (c++) from faststyle_tpu_torch/csrc, all
+               together, and checks with cuobjdump that the tile kernels run
+               on the tensor cores (HMMA instructions in their SASS)
   3. kernel  — the kernel against its plain PyTorch version, forward and
                gradient, at the b4@256 training shapes and the 474x712
                slow-style shapes in float32 and bf16 and at ragged and
@@ -23,19 +23,30 @@ Phases, each raising on failure (the script then exits non-zero):
                width (random VGG16 weights and synthetic images from a seed),
                with the Gram launch count; one GPU train step against the
                same step on the CPU; steps/s of the train step
-  5. serve   — `faststyle_tpu_torch.cli.stylize_image` in float32 against
+  5. records — `faststyle_tpu_torch.cli.tfrecords_writer` turns 64
+               synthetic 640x480 JPEGs, a PNG and a grayscale JPEG into 4
+               shards (C++ scan with CRCs against the plain Python reader, a
+               flipped byte raises); `cli.train --train_dir` for 6 steps at
+               b4@256 with the Gram launch count; `--data_parallel` for 3
+               steps through `torch.distributed.run` (one NCCL rank) against
+               a plain 3-step run, both with deterministic algorithms;
+               `--debug_nans` clean, and a NaN batch
+               raising FloatingPointError; the fused content tower against
+               the plain step, then both timed in float32 and bfloat16; the
+               Batchers' images/s
+  6. serve   — `faststyle_tpu_torch.cli.stylize_image` in float32 against
                the seven TF oracle PNGs (SSIM >= 0.99); uint8 output within
                one count of the CPU Stylizer; bfloat16 against float32
                (SSIM >= 0.98); a TF1 checkpoint written by the port serves
                bit-exact with the .npz; packed-u8 input, output and both
                bit-exact with the plain uint8 path at 1080x1920 and 250x243,
                resize and deconv; --input_dir over three images, two sizes
-  6. stream  — `faststyle_tpu_torch.cli.stylize_webcam` on 120 synthetic
+  7. stream  — `faststyle_tpu_torch.cli.stylize_webcam` on 120 synthetic
                1920x1080 frames in bfloat16 and float32 at pipeline depths 1
                and 2, with --packed_fetch, at 512x512, and through a short
                MJPG video: fps and p50/p99 latency; the forward's device-alone
                ms per frame (CUDA-graph replays)
-  7. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
+  8. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
                chicago.jpg at its native 474x712 (random VGG16), with the Gram
                launch count; 5 steps in bfloat16; 3 steps at 256x256 on the
                card against the CPU from the same start
@@ -47,6 +58,7 @@ line.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import csv
 import functools
 import json
@@ -68,10 +80,11 @@ from faststyle_tpu_torch.cli import stylize_image as cli_image
 from faststyle_tpu_torch.cli import stylize_webcam as cli_webcam
 from faststyle_tpu_torch.cli import train as cli_train
 from faststyle_tpu_torch.compat import tf1_checkpoint
+from faststyle_tpu_torch.data import pipeline, tfrecord
 from faststyle_tpu_torch.inference import load_params
 from faststyle_tpu_torch.models import transform_net, vgg16
 from faststyle_tpu_torch.ops.cuda import build, gram
-from faststyle_tpu_torch.training import slow_style, train_step
+from faststyle_tpu_torch.training import loop, slow_style, train_step
 from faststyle_tpu_torch.utils import image_io
 from faststyle_tpu_torch.utils.metrics import ssim
 
@@ -100,7 +113,8 @@ CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TR
 ]
 # in both dtypes: split (two launches); one launch, mostly off-diagonal tiles
 DETERMINISM_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[3]]
-BUILDS = ("gram", "depth_to_space")  # csrc/gram.cu (the kernel), csrc/depth_to_space.cc (host)
+# csrc/gram.cu (the kernel); csrc/depth_to_space.cc and csrc/tfrecord_io.cc (host)
+BUILDS = ("gram", "depth_to_space", "tfrecord_io")
 # forward: float32 sums over hw in another order than cuBLAS -> 1e-4 of the
 # largest entry; gradient: the same matmul formula in f32 (1e-4), and for
 # bf16 one bf16 rounding of each entry after it (2^-8 ~ 4e-3 -> 1e-2)
@@ -138,13 +152,14 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
-    """Builds the Gram kernel (nvcc) and the host pack library (c++), both
-    compilers started together."""
+    """Builds the Gram kernel (nvcc), the host pack library and the TFRecord
+    codec (c++), every compiler started together."""
     phase("build")
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(BUILDS)) as pool:
         built = dict(zip(BUILDS, pool.map(build.build, BUILDS)))
     gram._lib()  # load and bind
     inference._host_lib()
+    tfrecord._lib()
     for name, (path, seconds) in built.items():
         print(f"built {path.relative_to(REPO)} in {seconds:.2f} s")
     tensor_core_check(built["gram"][0])
@@ -413,7 +428,7 @@ def slice_phase() -> dict:
             rows = list(csv.DictReader(f))
         for row in rows:
             parts = {k: float(row[k]) for k in ("loss", "content_loss", "style_loss", "tv_loss")}
-            print(f"step {row['step']}: {parts}")
+            print(f"step {row['step']}: {parts}, steps/s since the last row {row.get('steps_per_sec') or 'none'}")
             if not all(math.isfinite(v) for v in parts.values()):
                 raise AssertionError(f"non-finite loss part at step {row['step']}: {parts}")
         params = load_params(root / "models" / "model_final.npz", device="cuda")
@@ -462,14 +477,14 @@ def reference_check(vgg_path: Path, vgg_gpu) -> None:
           f"{out['cpu'][0]['loss']:.6g}; params max diff {diff:.3e}, {moved:.3%} of entries beyond 1e-5")
 
 
-def steps_per_sec(vgg_gpu, compute_dtype, iters: int = 10) -> float:
+def steps_per_sec(vgg_gpu, compute_dtype, iters: int = 10, fused: bool = False) -> float:
     """Train steps per second at b4@256 (synchronized), after a warm-up step."""
     config = train_step.TrainConfig.make(compute_dtype=compute_dtype)
     grams = slow_style.style_target_grams(
         vgg_gpu, torch.rand(1, 256, 256, 3, device="cuda") * 255, ("conv1_2", "conv2_2", "conv3_3", "conv4_3")
     )
     state = train_step.init_state(config, seed=SEED, device="cuda")
-    step = train_step.make_train_step(vgg_gpu, grams, config)
+    step = train_step.make_train_step(vgg_gpu, grams, config, fused_content_tower=fused)
     batch = torch.rand(4, 256, 256, 3, device="cuda") * 255
     step(state, batch)
     torch.cuda.synchronize()
@@ -480,9 +495,280 @@ def steps_per_sec(vgg_gpu, compute_dtype, iters: int = 10) -> float:
     rate = iters / (time.perf_counter() - t0)
     if not math.isfinite(float(metrics["loss"])):
         raise AssertionError("non-finite loss in the timed steps")
-    name = "bfloat16" if compute_dtype is not None else "float32"
+    name = ("bfloat16" if compute_dtype is not None else "float32") + (" fused content tower" if fused else "")
     print(f"train step b4@256 {name}: {rate:.3f} steps/s ({1e3 / rate:.3f} ms/step)")
     return rate
+
+RECORD_PHOTOS = 64  # synthetic 640x480 JPEGs, COCO's usual size, plus one PNG and one grayscale JPEG
+RECORD_STEPS = 6
+DP_STEPS = 3
+RATE_BATCHES = 50  # batches timed per Batcher, after the first
+
+
+def write_photos(root: Path) -> Path:
+    """RECORD_PHOTOS 640x480 JPEGs, a PNG and a grayscale JPEG, from the seed."""
+    import cv2
+
+    rng = np.random.default_rng(SEED + 2)
+    d = root / "photos"
+    d.mkdir()
+    yy, xx = np.mgrid[0:480, 0:640] / 480.0
+    for i in range(RECORD_PHOTOS + 2):
+        offset = rng.uniform(0, 2 * np.pi, 3)
+        img = 127 + 100 * np.sin(2 * np.pi * (xx[..., None] * (i % 7 + 1) + yy[..., None]) + offset)
+        img = np.clip(img + rng.normal(0, 20, img.shape), 0, 255).astype(np.uint8)
+        if i == RECORD_PHOTOS:
+            image_io.imwrite(d / "photo_png.png", img)
+        elif i == RECORD_PHOTOS + 1:
+            cv2.imwrite(str(d / "photo_gray.jpg"), img[..., 0])
+        else:
+            image_io.imwrite(d / f"photo_{i:03d}.jpg", img)
+    return d
+
+
+# cuBLAS's workspace setting for bitwise-reproducible products (the Gram's
+# backward is a matmul), required by torch.use_deterministic_algorithms
+CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# cli.train with deterministic algorithms, for torch.distributed.run to start
+DETERMINISTIC_TRAIN = """import runpy
+import torch
+torch.use_deterministic_algorithms(True)
+runpy.run_module("faststyle_tpu_torch.cli.train", run_name="__main__", alter_sys=True)
+"""
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms in this process until the block ends."""
+    saved = {k: os.environ.get(k) for k in CUBLAS_DETERMINISTIC}
+    os.environ.update(CUBLAS_DETERMINISTIC)
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def port_subprocess(args: list, cwd: Path, timeout: int, env_extra: dict | None = None) -> subprocess.CompletedProcess:
+    """`python <args>` with the repo importable, from `cwd`; raises with
+    the tail of its output if it fails."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")])))
+    env.update(env_extra or {})
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: NCCL's bootstrap stays on the loopback
+    proc = subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(args[:4])} ... exited {proc.returncode}:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    return proc
+
+
+def params_diff(a: Path, b: Path) -> tuple[float, float]:
+    """(largest |a - b|, share of entries beyond 1e-5) of two params .npz."""
+    pa, pb = inference.load_params_numpy(a), inference.load_params_numpy(b)
+    d = np.concatenate([np.abs(pa[blk][v] - pb[blk][v]).ravel() for blk in pa for v in pa[blk]])
+    return float(d.max()), float((d > 1e-5).mean())
+
+
+def train_cli(cwd: Path, records: Path, vgg_path: Path, steps: int, *extra) -> tuple:
+    """cli.train --train_dir in-process from `cwd` at b4@256 float32; returns
+    (state, wall s)."""
+    cwd.mkdir()
+    prev = os.getcwd()
+    os.chdir(cwd)  # the CLI writes training/, models/, summaries/ here
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = cli_train.main(records_args(records, vgg_path, steps) + list(extra))
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+    finally:
+        os.chdir(prev)
+
+
+LOSS_PARTS = ("loss", "content_loss", "style_loss", "tv_loss")
+
+
+def metric_rows(run_dir: Path) -> list:
+    """The rows of the metrics CSV that cli.train wrote under `run_dir`."""
+    with open(next((run_dir / "summaries" / "train").glob("*/metrics.csv")), newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def records_args(records: Path, vgg_path: Path, steps: int) -> list:
+    return ["--train_dir", str(records), "--vgg_path", str(vgg_path),
+            "--style_img_path", str(REPO / "style_images" / "starry_night_crop.jpg"),
+            "--batch_size", "4", "--preprocess_size", "256", "256", "--n_epochs", "4",
+            "--num_steps_break", str(steps), "--num_steps_ckpt", "3",
+            # a small shuffle buffer: the default 4000 holds 3.1 GB of decoded images
+            "--num_pipe_buffer", "16"]
+
+
+def records_phase() -> dict:
+    phase("records")
+    check = Checks("records")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_records_") as tmp:
+        root = Path(tmp)
+        vgg_path, _ = write_inputs(root)
+        photos = write_photos(root)
+        records = root / "records"
+
+        # 1. the dataset: the writer CLI, then every record read back
+        t0 = time.perf_counter()
+        port_subprocess(["-m", "faststyle_tpu_torch.cli.tfrecords_writer", "--train_directory", str(photos),
+                         "--output_directory", str(records), "--train_shards", "4", "--num_threads", "2"],
+                        root, timeout=300)
+        wall = time.perf_counter() - t0
+        shards = sorted(records.glob("train-*"))
+        recs = [r for s in shards for r in tfrecord.iter_records(s, verify=True)]
+        plain = [r for s in shards for r in tfrecord.iter_records(s, verify=True, plain=True)]
+        names, shapes_ok = set(), True
+        for rec in recs:
+            ex = tfrecord.decode_example(rec)
+            names.add(ex["image/filename"].decode())
+            img = image_io.imdecode(ex["image/encoded"])
+            shapes_ok &= img.shape == (ex["image/height"], ex["image/width"], 3) == (480, 640, 3)
+        check([s.name for s in shards] == [f"train-{i:05d}-of-00004" for i in range(4)] and len(recs) == RECORD_PHOTOS + 2
+              and recs == plain and shapes_ok and {"photo_png.png", "photo_gray.jpg"} <= names,
+              f"cli.tfrecords_writer: {len(recs)} records in {len(shards)} shards ({sum(s.stat().st_size for s in shards)} "
+              f"bytes) in {wall:.3f} s wall; C++ scan with CRCs byte-equal to the plain Python reader: {recs == plain}; "
+              f"all decode to 480x640x3: {shapes_ok}")
+        bad = root / "bad.tfrecord"
+        raw = bytearray(shards[0].read_bytes())
+        raw[len(raw) // 2] ^= 0x01
+        bad.write_bytes(bytes(raw))
+        try:
+            list(tfrecord.iter_records(bad, verify=True))
+            err = None
+        except ValueError as e:
+            err = str(e)
+        check(err is not None and "corrupt" in err, f"one flipped byte in a shard: {err}")
+
+        # 2. training from the shards: the main path, with the kernel's count
+        gram.GramFunction.launches = 0
+        state, wall = train_cli(root / "run6", records, vgg_path, RECORD_STEPS)
+        launches = gram.GramFunction.launches
+        want = 4 * RECORD_STEPS + 4  # four style layers per step, plus the target Grams once
+        check(state.step == RECORD_STEPS and launches >= want,
+              f"cli.train --train_dir: {state.step} steps at b4@256 float32 in {wall:.3f} s wall (pipeline, targets, "
+              f"checkpoints, final save); gram launches {launches} (need >= {want})")
+        run6 = root / "run6"
+        ckpts = [(run6 / "training" / "model" / f"step_{s}" / "state.npz").exists() for s in (3, 6)]
+        rows = metric_rows(run6)
+        parts = [{k: float(r[k]) for k in LOSS_PARTS} for r in rows]
+        rate = rows[-1].get("steps_per_sec") or "none"
+        check(all(ckpts) and (run6 / "models" / "model_final.npz").exists()
+              and all(math.isfinite(v) for p in parts for v in p.values()),
+              f"checkpoints at 3 and 6: {ckpts}; final npz; loss parts {parts}; steps/s between the checkpoints {rate}")
+
+        # 3. --data_parallel through torch.distributed.run, against a plain
+        # run, both with deterministic algorithms: the plain step alone is not
+        # bitwise reproducible on the card (two runs of it drifted 2.0e-3
+        # apart in 3 steps), which would hide what the data-parallel path
+        # changes; a second plain run shows the floor
+        with deterministic():
+            train_cli(root / "plain3", records, vgg_path, DP_STEPS)
+            train_cli(root / "plain3b", records, vgg_path, DP_STEPS)
+        floor = params_diff(root / "plain3" / "models" / "model_final.npz",
+                            root / "plain3b" / "models" / "model_final.npz")
+        (root / "dp3").mkdir()
+        launcher = root / "deterministic_train.py"
+        launcher.write_text(DETERMINISTIC_TRAIN)
+        t0 = time.perf_counter()
+        proc = port_subprocess(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", str(launcher),
+                                *records_args(records, vgg_path, DP_STEPS), "--data_parallel"],
+                               root / "dp3", timeout=600, env_extra=CUBLAS_DETERMINISTIC)
+        wall = time.perf_counter() - t0
+        diff, share = params_diff(root / "plain3" / "models" / "model_final.npz",
+                                  root / "dp3" / "models" / "model_final.npz")
+        lr = train_step.TrainConfig.make().learn_rate
+        plain_loss, dp_loss = (metric_rows(root / run)[-1] for run in ("plain3", "dp3"))
+        rel = max(abs(float(dp_loss[k]) - float(plain_loss[k])) / max(abs(float(plain_loss[k])), 1e-30)
+                  for k in LOSS_PARTS)
+        check(diff <= 2.001 * lr and share <= 0.01 and rel <= 1e-3 and "final weights" in proc.stdout,
+              f"--data_parallel, one NCCL rank through torch.distributed.run, {DP_STEPS} steps in {wall:.3f} s wall "
+              f"(process start included), deterministic algorithms: loss parts at step {DP_STEPS} within {rel:.2e} "
+              f"relative of the plain run's (need <= 1e-3); params max diff {diff:.3e} (need <= {2 * lr}), "
+              f"{share:.3%} of entries beyond 1e-5 (need <= 1%); two plain runs: {floor[0]:.3e}, {floor[1]:.3%}")
+
+        # 4. NaN checking
+        state, wall = train_cli(root / "nans2", records, vgg_path, 2, "--debug_nans")
+        check(state.step == 2, f"--debug_nans on clean batches: {state.step} steps in {wall:.3f} s wall")
+        vgg_gpu = vgg16.load_npz(vgg_path, device="cuda")
+        style = image_io.imread(REPO / "style_images" / "starry_night_crop.jpg")
+        nan_batch = np.random.default_rng(SEED + 3).uniform(0, 255, (4, 256, 256, 3)).astype(np.float32)
+        nan_batch[2, 100, 50, 1] = np.nan
+        try:
+            loop.train(vgg_params=vgg_gpu, style_img=style, batches=[nan_batch], config=train_step.TrainConfig.make(),
+                       train_root=root / "nan" / "training", models_root=root / "nan" / "models",
+                       summaries_root=root / "nan" / "summaries", debug_nans=True)
+            err = None
+        except FloatingPointError as e:
+            err = str(e)
+        check(err is not None and err.startswith("step 1"),
+              f"a batch with one NaN pixel under debug_nans: FloatingPointError {err!r:.160}")
+
+        # 5. the fused content tower
+        fused_check(check, vgg_gpu)
+        timing = {}
+        for dtype in (None, torch.bfloat16):
+            rates = [steps_per_sec(vgg_gpu, dtype, fused=f) for f in (False, True, True, False)]
+            timing["bfloat16" if dtype else "float32"] = rates
+        # 6. input rate on this machine's host
+        input_rates = {
+            "tfrecord": batcher_rate(pipeline.Batcher(shards, batch_size=4, min_after_dequeue=16,
+                                                      num_decode_threads=8)),
+            "image_dir": batcher_rate(pipeline.image_dir_batcher(photos, batch_size=4, min_after_dequeue=16,
+                                                                 num_decode_threads=8)),
+        }
+    check.done()
+    return {"launches": launches, "fused_ms": timing, "input_rates": input_rates}
+
+
+def fused_check(check: "Checks", vgg_gpu) -> None:
+    """One fused-tower step against the plain step from the same state at
+    b4@256 float32: loss parts within 1e-4 relative, params within 2 * lr."""
+    config = train_step.TrainConfig.make()
+    style = torch.rand(1, 256, 256, 3, generator=torch.Generator().manual_seed(SEED)).cuda() * 255
+    grams = slow_style.style_target_grams(vgg_gpu, style, ("conv1_2", "conv2_2", "conv3_3", "conv4_3"))
+    batch = torch.rand(4, 256, 256, 3, generator=torch.Generator().manual_seed(SEED + 1)).cuda() * 255
+    out = {}
+    for fused in (False, True):
+        state = train_step.init_state(config, seed=SEED, device="cuda")
+        state, metrics = train_step.make_train_step(vgg_gpu, grams, config, fused_content_tower=fused)(state, batch)
+        out[fused] = ({k: float(v) for k, v in metrics.items()},
+                      torch.cat([p.detach().flatten() for p in state.net.parameters()]))
+    rel = {k: abs(out[True][0][k] - v) / max(abs(v), 1e-30) for k, v in out[False][0].items()}
+    diffs = (out[True][1] - out[False][1]).abs()
+    diff, share = float(diffs.max()), float((diffs > 1e-5).float().mean())
+    check(max(rel.values()) <= 1e-4 and diff <= 2.001 * config.learn_rate and share <= 0.01,
+          f"fused content tower vs the plain step, b4@256 float32: loss parts {out[True][0]}, relative "
+          f"{ {k: f'{v:.2e}' for k, v in rel.items()} } (need <= 1e-4); params max diff {diff:.3e} "
+          f"(need <= {2 * config.learn_rate}), {share:.3%} beyond 1e-5")
+
+
+def batcher_rate(batcher) -> float:
+    """Images per second the Batcher yields at b4@256 once its shuffle
+    buffer is full (RATE_BATCHES batches after the first)."""
+    it = iter(batcher)
+    try:
+        next(it)
+        t0 = time.perf_counter()
+        for _ in range(RATE_BATCHES):
+            next(it)
+        rate = RATE_BATCHES * 4 / (time.perf_counter() - t0)
+    finally:
+        it.close()
+    name = type(batcher).__name__
+    print(f"input rate, {name} at b4@256 with 8 decode threads from 640x480 JPEGs on {os.cpu_count()} host cores: "
+          f"{rate:.3f} images/s ({rate / 4:.3f} batches/s)", flush=True)
+    return rate
+
 
 ASSETS = REPO / "tests" / "assets"
 STARRY = REPO / "weights" / "starry_final.npz"
@@ -729,16 +1015,18 @@ def main() -> None:
     build_phase()
     k = kernel_phase()
     s = slice_phase()
+    r = records_phase()
     serve_phase()
     stream_phase()
     ss = slow_style_phase()
-    print(f"gram launches: {s['launches']} on the train slice, {ss['launches']} on slow-style")
+    print(f"gram launches: {s['launches']} on the train slice, {r['launches']} training from TFRecords, "
+          f"{ss['launches']} on slow-style")
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
         "source": "faststyle_tpu_torch/csrc/gram.cu",
         "replaces": "faststyle_tpu/ops/pallas/gram.py:22",
-        "launches": s["launches"] + ss["launches"],
+        "launches": s["launches"] + r["launches"] + ss["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "kernel_ms": k["kernel_ms"],

@@ -4,7 +4,7 @@ The JAX package `faststyle_tpu` is the reference; this package mirrors its
 module names so each counterpart is easy to find, keeps its public layouts
 (NHWC activations, HWIO weights in files) and imports nothing of it.
 
-Public surface (training, serving, Gatys slow-style):
+Public surface (training, serving, Gatys slow-style, TFRecords, data parallelism):
     faststyle_tpu_torch.ops.layers           — conv / norm / pool primitives
     faststyle_tpu_torch.ops.cuda.gram        — the Gram kernel (CUDA C++, sm_90a)
     faststyle_tpu_torch.models.transform_net — Johnson-style image transform net
@@ -13,9 +13,11 @@ Public surface (training, serving, Gatys slow-style):
     faststyle_tpu_torch.training             — train step, loop, checkpoints, slow-style
     faststyle_tpu_torch.inference            — params I/O, Stylizer, host pack/unpack
     faststyle_tpu_torch.compat.tf1_checkpoint — TF1 checkpoints without TensorFlow
-    faststyle_tpu_torch.data.pipeline        — image-dir batcher + device prefetch
+    faststyle_tpu_torch.data.pipeline        — TFRecord / image-dir batchers + device prefetch
+    faststyle_tpu_torch.data.{tfrecord,writer} — TFRecord codec (host C++) and dataset writer
+    faststyle_tpu_torch.parallel             — data-parallel training over torch.distributed
     faststyle_tpu_torch.convert              — weights between the npz and torch layouts
-    faststyle_tpu_torch.cli.{train,stylize_image,stylize_webcam,slow_style}
+    faststyle_tpu_torch.cli.{train,stylize_image,stylize_webcam,slow_style,tfrecords_writer}
                                              — `python -m faststyle_tpu_torch.cli.<name>`
 
 Entry points run on `cuda` unless the caller asks for `device="cpu"`; they

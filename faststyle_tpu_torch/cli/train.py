@@ -1,29 +1,29 @@
 #!/usr/bin/env python3
 """Train a style transfer net (perceptual loss) with the PyTorch port.
 
-    python -m faststyle_tpu_torch.cli.train --image_dir <jpegs> \\
+    python -m faststyle_tpu_torch.cli.train --train_dir <records> \\
         --vgg_path vgg16_weights.npz --model_name starry
 
 The flags are faststyle_tpu's train CLI's, with its defaults (the published
 recipe: batch 4, 256x256, Adam 1e-3, 2 epochs, style weights 5x4), plus
 `--device {cuda,cpu}` (default cuda; there is no silent CPU fallback).
-`--image_dir` is the data source; `--train_dir` (TFRecords),
-`--data_parallel` and `--debug_nans` exit with a "not yet ported" message.
-TF32 is off (`full_float32`): `--precision float32` is full float32.
+The data is `--train_dir`'s `train-*` TFRecord shards (written by
+`cli.tfrecords_writer`) or `--image_dir`'s image files. `--debug_nans`
+raises FloatingPointError at the first NaN. `--data_parallel` trains on
+every rank that `torch.distributed.run` starts, one per card:
+
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \\
+        -m faststyle_tpu_torch.cli.train --train_dir <records> --data_parallel
+
+Each rank takes its rows of the global batch and the gradients are summed
+over ranks; started alone it is a world of one. TF32 is off
+(`full_float32`): `--precision float32` is full float32.
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-
-_NOT_PORTED = {
-    "train_dir": "--train_dir (TFRecord input) is not yet ported "
-    "(ROADMAP.md, modules to port: 'TFRecords'); use --image_dir",
-    "data_parallel": "--data_parallel is not yet ported (ROADMAP.md, modules to port: 'parallel/')",
-    "debug_nans": "--debug_nans is not yet ported "
-    "(ROADMAP.md, modules to port: 'fused_content_tower and --debug_nans')",
-}
 
 
 def setup_parser() -> argparse.ArgumentParser:
@@ -84,13 +84,13 @@ def setup_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--data_parallel",
         action="store_true",
-        help="Shard the batch over all devices (not yet ported).",
+        help="Shard the batch over the ranks of torch.distributed.run (batch_size must divide evenly).",
     )
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument(
         "--debug_nans",
         action="store_true",
-        help="Fail fast on non-finite values (not yet ported).",
+        help="Fail fast on non-finite values (anomaly detection plus a finite check of the loss).",
     )
     parser.add_argument(
         "--device",
@@ -106,68 +106,87 @@ def main(argv=None):
 
     full_float32()
     args = setup_parser().parse_args(argv)
-    for flag, msg in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(msg)
-    if not args.image_dir:
-        raise SystemExit("need --image_dir (a directory of JPEG/PNG files)")
+    if not (args.image_dir or args.train_dir):
+        raise SystemExit("need --train_dir (TFRecords) or --image_dir (JPEGs)")
 
     import torch
 
     from faststyle_tpu_torch import resolve_device
     from faststyle_tpu_torch.data import pipeline
     from faststyle_tpu_torch.models import vgg16
+    from faststyle_tpu_torch.parallel import mesh as mesh_lib
     from faststyle_tpu_torch.training import loop
     from faststyle_tpu_torch.training.train_step import TrainConfig
     from faststyle_tpu_torch.utils import image_io
 
-    device = resolve_device(args.device)
-    vgg_file = Path(args.vgg_path)
-    if not vgg_file.exists():
-        raise SystemExit(
-            f"VGG16 weights not found at {vgg_file}. Download vgg16_weights.npz "
-            "(Frossard's Caffe conversion) and pass --vgg_path."
-        )
-    vgg_params = vgg16.load_npz(vgg_file, device=device)
-
-    style_img = image_io.imread(args.style_img_path)
-    style_img = image_io.imresize(style_img, args.style_target_resize)
-
-    config = TrainConfig.make(
-        content_layers=tuple(args.loss_content_layers),
-        content_weights=tuple(args.content_weights),
-        style_layers=tuple(args.loss_style_layers),
-        style_weights=tuple(args.style_weights),
-        beta=args.beta,
-        learn_rate=args.learn_rate,
-        upsample_method=args.upsample_method,
-        compute_dtype=torch.bfloat16 if args.precision == "bfloat16" else None,
-    )
-    batcher = pipeline.image_dir_batcher(
-        args.image_dir,
-        batch_size=args.batch_size,
-        resize_shape=tuple(args.preprocess_size),
-        n_epochs=args.n_epochs,
-        min_after_dequeue=args.num_pipe_buffer,
-        seed=args.seed,
-    )
-    batches = pipeline.device_prefetch(iter(batcher), depth=2, device=device)
+    mesh = None
+    if args.data_parallel:
+        _, world, _ = mesh_lib.world_from_env()
+        if args.batch_size % world:
+            raise SystemExit(f"--batch_size {args.batch_size} not divisible by {world} devices")
+        mesh = mesh_lib.init_data_parallel(args.device)
+        device = mesh.device
+    else:
+        device = resolve_device(args.device)
     try:
-        return loop.train(
-            vgg_params=vgg_params,
-            style_img=style_img,
-            batches=batches,
-            config=config,
-            model_name=args.model_name or "model",
-            seed=args.seed,
-            num_steps_ckpt=args.num_steps_ckpt,
-            num_steps_break=args.num_steps_break,
-            run_name=args.run_name,
-            resume=args.resume,
-            device=device,
+        vgg_file = Path(args.vgg_path)
+        if not vgg_file.exists():
+            raise SystemExit(
+                f"VGG16 weights not found at {vgg_file}. Download vgg16_weights.npz "
+                "(Frossard's Caffe conversion) and pass --vgg_path."
+            )
+        vgg_params = vgg16.load_npz(vgg_file, device=device)
+
+        style_img = image_io.imread(args.style_img_path)
+        style_img = image_io.imresize(style_img, args.style_target_resize)
+
+        config = TrainConfig.make(
+            content_layers=tuple(args.loss_content_layers),
+            content_weights=tuple(args.content_weights),
+            style_layers=tuple(args.loss_style_layers),
+            style_weights=tuple(args.style_weights),
+            beta=args.beta,
+            learn_rate=args.learn_rate,
+            upsample_method=args.upsample_method,
+            compute_dtype=torch.bfloat16 if args.precision == "bfloat16" else None,
         )
+        data = dict(
+            batch_size=args.batch_size,
+            resize_shape=tuple(args.preprocess_size),
+            n_epochs=args.n_epochs,
+            min_after_dequeue=args.num_pipe_buffer,
+            seed=args.seed,
+        )
+        if args.image_dir:
+            batcher = pipeline.image_dir_batcher(args.image_dir, **data)
+        else:
+            batcher = pipeline.Batcher(sorted(Path(args.train_dir).glob("train-*")), **data)
+        source = iter(batcher)
+        if mesh is not None:
+            # every rank runs the same seeded Batcher and keeps its rows
+            source = mesh_lib.shard_rows(source, mesh.rank, mesh.size)
+        batches = pipeline.device_prefetch(source, depth=2, device=device)
+        try:
+            return loop.train(
+                vgg_params=vgg_params,
+                style_img=style_img,
+                batches=batches,
+                config=config,
+                model_name=args.model_name or "model",
+                seed=args.seed,
+                num_steps_ckpt=args.num_steps_ckpt,
+                num_steps_break=args.num_steps_break,
+                run_name=args.run_name,
+                resume=args.resume,
+                device=device,
+                debug_nans=args.debug_nans,
+                dp=mesh,
+            )
+        finally:
+            batches.close()  # stops the prefetch thread and the decode pool
     finally:
-        batches.close()  # stops the prefetch thread and the decode pool
+        if mesh is not None:
+            mesh.close()
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ serialized `BundleEntryProto`s (plus an empty-key `BundleHeaderProto`), and
 bytes at the (offset, size) of each entry. This module reads that format
 (footer, block handles, prefix-compressed keys, optional snappy blocks, the
 few protobuf fields needed) and writes it (sorted names, masked-crc32c
-checksums, as TF's tensor_bundle writer does).
+checksums through the TFRecord codec's C++ CRC, as TF's tensor_bundle
+writer does).
 
 Everything is numpy; nothing here needs torch. bfloat16 entries (DT_BFLOAT16)
 decode without a bfloat16 numpy type: each 16-bit value is the top half of
@@ -22,6 +23,8 @@ from pathlib import Path
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
+
+from faststyle_tpu_torch.data.tfrecord import masked_crc32c
 
 _SSTABLE_MAGIC = 0xDB4775248B80FB57
 _DT_BFLOAT16 = 14
@@ -44,7 +47,7 @@ _TF_DTYPES = {
 
 
 # ---------------------------------------------------------------------------
-# varint / crc32c / protobuf-lite helpers
+# varint / protobuf-lite helpers
 # ---------------------------------------------------------------------------
 
 
@@ -68,33 +71,6 @@ def _write_varint(n: int) -> bytes:
         out.append(b | (0x80 if n else 0))
         if not n:
             return bytes(out)
-
-
-_CRC_POLY = 0x82F63B78  # CRC-32C (Castagnoli), reflected
-_MASK_DELTA = 0xA282EAD8
-
-
-def _crc_table() -> Tuple[int, ...]:
-    table = []
-    for i in range(256):
-        crc = i
-        for _ in range(8):
-            crc = (crc >> 1) ^ (_CRC_POLY if crc & 1 else 0)
-        table.append(crc)
-    return tuple(table)
-
-
-_CRC_TABLE = _crc_table()
-
-
-def masked_crc32c(data: bytes) -> int:
-    """crc32c of `data`, masked as LevelDB and TFRecords store it."""
-    table = _CRC_TABLE
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = (crc >> 8) ^ table[(crc ^ b) & 0xFF]
-    crc ^= 0xFFFFFFFF
-    return (((crc >> 15) | (crc << 17)) + _MASK_DELTA) & 0xFFFFFFFF
 
 
 def _iter_proto_fields(buf: bytes) -> Iterator[Tuple[int, int, object]]:

@@ -1,23 +1,23 @@
 """Host-side training input pipeline (counterpart of
 faststyle_tpu/data/pipeline.py):
 
-  file reader (image bytes)
+  record reader (TFRecord shards through the C++ scanner, or image files)
     -> decode pool (cv2 decode + bicubic resize; cv2 releases the GIL)
     -> shuffle buffer (min_after_dequeue-style uniform sampling)
     -> batcher
     -> device_prefetch (pinned host memory, non_blocking copies on a side
        stream, `depth` batches ahead so the card never waits)
 
-This slice reads a directory of image files; the TFRecord source is a
-later slice. Kept from the reference: bicubic resize to `resize_shape`, a
-shuffle buffer of `min_after_dequeue` images, epoch-bounded iteration with
-the file order reshuffled every epoch.
+Kept from the reference: bicubic resize to `resize_shape`, a shuffle
+buffer of `min_after_dequeue` images, epoch-bounded iteration with the
+shard (or file) order reshuffled every epoch. The random draws are the JAX
+package's, one seeded numpy Generator in the same order, so both packages
+yield the same batches from the same shards and seed.
 """
 
 from __future__ import annotations
 
 import collections
-import functools
 import io
 import queue
 import threading
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from faststyle_tpu_torch import resolve_device
+from faststyle_tpu_torch.data import tfrecord
 
 try:
     import cv2
@@ -40,7 +41,6 @@ except Exception:  # pragma: no cover
 
 _T = TypeVar("_T")
 _R = TypeVar("_R")
-_DECODE_THREADS = 8  # cv2 decode + resize release the GIL
 
 
 def _bounded_map(
@@ -89,11 +89,15 @@ def _decode_resize(data: bytes, resize_shape: Optional[Sequence[int]]) -> Option
 
 
 class Batcher:
-    """Image files -> shuffled float32 NHWC batches (an iterable).
+    """TFRecord shards -> shuffled float32 NHWC batches (an iterable).
 
     Mirrors the reference's `datapipe.batcher(files, batch_size,
-    resize_shape, n_epochs, min_after_dequeue)`; each record is one file's
-    bytes. A last partial batch is dropped (the train step takes full ones).
+    resize_shape, n_epochs, min_after_dequeue)`. Each record is a
+    `tf.train.Example` whose `image/encoded` is decoded and resized on
+    `num_decode_threads` threads. A last partial batch is dropped unless
+    `drop_remainder=False`. `verify_crc` checks every record's data CRC in
+    the same C++ pass that finds the record boundaries, as TF's
+    RecordReader does, so a bit-rotted shard raises.
     """
 
     def __init__(
@@ -103,7 +107,10 @@ class Batcher:
         resize_shape: Optional[Sequence[int]] = (256, 256),
         n_epochs: Optional[int] = None,
         min_after_dequeue: int = 4000,
+        num_decode_threads: int = 8,
         seed: int = 0,
+        drop_remainder: bool = True,
+        verify_crc: bool = True,
     ):
         if not files:
             raise ValueError("no input files")
@@ -112,22 +119,30 @@ class Batcher:
         self._resize = tuple(resize_shape) if resize_shape is not None else None
         self._epochs = n_epochs
         self._buffer_size = min_after_dequeue
+        self._threads = num_decode_threads
         self._rng = np.random.default_rng(seed)
+        self._drop_remainder = drop_remainder
+        self._verify_crc = verify_crc
 
     def _record_stream(self) -> Iterator[bytes]:
         epoch = 0
         while self._epochs is None or epoch < self._epochs:
             for fi in self._rng.permutation(len(self._files)):
-                yield self._files[fi].read_bytes()
+                yield from tfrecord.iter_records(self._files[fi], verify=self._verify_crc)
             epoch += 1
+
+    def _decode(self, rec: bytes) -> Optional[np.ndarray]:
+        enc = tfrecord.decode_example(rec).get("image/encoded")
+        if enc is None:
+            return None
+        return _decode_resize(enc, self._resize)
 
     def __iter__(self) -> Iterator[np.ndarray]:
         buffer: List[np.ndarray] = []
         pending: List[np.ndarray] = []
-        pool = ThreadPoolExecutor(max_workers=_DECODE_THREADS)
+        pool = ThreadPoolExecutor(max_workers=self._threads)
         try:
-            decode = functools.partial(_decode_resize, resize_shape=self._resize)
-            stream = _bounded_map(pool, decode, self._record_stream(), depth=4 * _DECODE_THREADS)
+            stream = _bounded_map(pool, self._decode, self._record_stream(), depth=4 * self._threads)
             for img in stream:
                 if img is None:
                     continue
@@ -149,6 +164,8 @@ class Batcher:
                 if len(pending) == self._batch:
                     yield np.stack(pending)
                     pending = []
+            if pending and not self._drop_remainder:
+                yield np.stack(pending)
         except GeneratorExit:
             # the consumer abandoned the iterator: cancel, don't join workers
             pool.shutdown(wait=False, cancel_futures=True)
@@ -157,16 +174,30 @@ class Batcher:
             pool.shutdown(wait=True)
 
 
+class _DirBatcher(Batcher):
+    """A Batcher over image files: each file's bytes become one in-memory
+    Example record, so decoding and every random draw stay the Batcher's."""
+
+    def _record_stream(self) -> Iterator[bytes]:
+        epoch = 0
+        while self._epochs is None or epoch < self._epochs:
+            for fi in self._rng.permutation(len(self._files)):
+                path = self._files[fi]
+                yield tfrecord.encode_image_example(path.read_bytes(), 0, 0, path.name)
+            epoch += 1
+
+
 def image_dir_batcher(
     directory: str | Path,
     batch_size: int,
     resize_shape: Optional[Sequence[int]] = (256, 256),
     **kwargs,
 ) -> Batcher:
-    """Train straight from a directory of .jpg / .jpeg / .png files."""
+    """Train straight from a directory of .jpg / .jpeg / .png files,
+    skipping the TFRecord conversion."""
     exts = {".jpg", ".jpeg", ".png"}
     files = sorted(p for p in Path(directory).iterdir() if p.suffix.lower() in exts)
-    return Batcher(files, batch_size=batch_size, resize_shape=resize_shape, **kwargs)
+    return _DirBatcher(files, batch_size=batch_size, resize_shape=resize_shape, **kwargs)
 
 
 def device_prefetch(

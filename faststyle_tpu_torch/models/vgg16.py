@@ -60,9 +60,16 @@ def apply(
     layers: Optional[Iterable[str]] = None,
     *,
     compute_dtype: torch.dtype | None = None,
+    input_layer: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run the tower on NHWC RGB [0, 255]; return {layer: NHWC activation}
-    for the requested `layers` (None: every conv and pool)."""
+    for the requested `layers` (None: every conv and pool).
+
+    `input_layer='pool<k>'` treats `x` as the pool<k> activation and
+    continues the tower from there, without the mean subtraction: the
+    continuation half of the fused content tower (training.train_step).
+    Only pool boundaries are accepted, and every requested layer must lie
+    past it."""
     wanted = set(layers) if layers is not None else set(LAYER_ORDER)
     unknown = wanted - set(LAYER_ORDER)
     if unknown:
@@ -71,11 +78,27 @@ def apply(
         raise ValueError("no VGG16 layers requested")
     deepest = max(layer_index(name) for name in wanted)
 
-    h = x.float() - _mean_rgb(x.device)
-    if compute_dtype is not None:
-        h = h.to(compute_dtype)
+    if input_layer is not None:
+        if input_layer not in LAYER_ORDER or not input_layer.startswith("pool"):
+            raise ValueError(f"input_layer must be a pool boundary, got {input_layer}")
+        start = layer_index(input_layer) + 1
+        if deepest < start:
+            raise ValueError(f"requested layers end before input_layer {input_layer}")
+        dropped = [name for name in wanted if layer_index(name) < start]
+        if dropped:
+            # the tower starts past them: they cannot be computed from x
+            raise ValueError(
+                f"layers {sorted(dropped)} are at or below input_layer "
+                f"{input_layer} and cannot be computed from it"
+            )
+        h = x if compute_dtype is None else x.to(compute_dtype)
+    else:
+        start = 0
+        h = x.float() - _mean_rgb(x.device)
+        if compute_dtype is not None:
+            h = h.to(compute_dtype)
     acts: Dict[str, torch.Tensor] = {}
-    for name in LAYER_ORDER[: deepest + 1]:
+    for name in LAYER_ORDER[start : deepest + 1]:
         if name.startswith("pool"):
             h = L.max_pool_2x2_same(h)
         else:

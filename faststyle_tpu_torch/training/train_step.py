@@ -84,25 +84,80 @@ def init_state(
 
 
 def make_grad_fn(
-    vgg_params: vgg16.Params, target_grams: Mapping[str, torch.Tensor], config: TrainConfig
+    vgg_params: vgg16.Params,
+    target_grams: Mapping[str, torch.Tensor],
+    config: TrainConfig,
+    *,
+    fused_content_tower: bool = False,
 ) -> Callable[[transform_net.TransformNet, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(net, batch) -> loss parts, leaving the gradients in the net's .grad."""
+    """(net, batch) -> loss parts, leaving the gradients in the net's .grad.
+
+    The one definition of the training loss: `make_train_step` steps Adam
+    right after it, `parallel.data_parallel.make_dp_train_step` all-reduces
+    the gradients first.
+
+    `fused_content_tower=True` runs one VGG pass on cat([batch, y]) up to
+    the pool after the deepest content layer, takes the (detached) batch
+    half as the content targets, and continues only the y half into the
+    deeper style layers. The same function as the plain form; the batch
+    half carries no gradient, but the backward's input-gradient convs run
+    over the doubled batch through the shared blocks. Default off, as in
+    the reference; with no content layer it is the plain form."""
     content_w = dict(config.content_weights)
     style_w = dict(config.style_weights)
     all_layers = tuple(dict.fromkeys(tuple(content_w) + tuple(style_w)))
     content_layers = tuple(content_w)
     if not all_layers:
         raise ValueError("need at least one content or style layer")
+    fused_content_tower = fused_content_tower and bool(content_layers)
+
+    if fused_content_tower:
+        # the pool boundary at or after the deepest content layer: the joint
+        # [batch; y] prefix covers every content layer
+        deepest_content = max(vgg16.layer_index(l) for l in content_layers)
+        split_pool = next(
+            name for name in vgg16.LAYER_ORDER[deepest_content:] if name.startswith("pool")
+        )
+        split = vgg16.layer_index(split_pool)
+        prefix_layers = tuple(
+            dict.fromkeys(tuple(l for l in all_layers if vgg16.layer_index(l) <= split) + (split_pool,))
+        )
+        suffix_layers = tuple(l for l in all_layers if vgg16.layer_index(l) > split)
+
+    def fused_acts(batch: torch.Tensor, y: torch.Tensor):
+        n = batch.shape[0]
+        pair = torch.cat([batch, y.to(batch.dtype)])
+        joint = vgg16.apply(vgg_params, pair, prefix_layers, compute_dtype=config.compute_dtype)
+        tgt, acts = {}, {}
+        for name, act in joint.items():
+            acts[name] = act[n:]
+            if name in content_w:
+                tgt[name] = act[:n].detach()
+        # the split-pool activation seeds the continuation; it leaves the
+        # loss dict unless it is a loss layer itself
+        pool_act = acts[split_pool] if split_pool in all_layers else acts.pop(split_pool)
+        if suffix_layers:
+            acts.update(
+                vgg16.apply(
+                    vgg_params, pool_act, suffix_layers,
+                    compute_dtype=config.compute_dtype, input_layer=split_pool,
+                )
+            )
+        return acts, tgt
 
     def grad_fn(net: transform_net.TransformNet, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        with torch.no_grad():
-            tgt = (
-                vgg16.apply(vgg_params, batch, content_layers, compute_dtype=config.compute_dtype)
-                if content_layers
-                else {}
-            )
-        y = net(batch, compute_dtype=config.compute_dtype)
-        acts = vgg16.apply(vgg_params, y, all_layers, compute_dtype=config.compute_dtype)
+        if fused_content_tower:
+            y = net(batch, compute_dtype=config.compute_dtype)
+            acts, tgt = fused_acts(batch, y)
+        else:
+            with torch.no_grad():
+                tgt = (
+                    vgg16.apply(vgg_params, batch, content_layers, compute_dtype=config.compute_dtype)
+                    if content_layers
+                    else {}
+                )
+            y = net(batch, compute_dtype=config.compute_dtype)
+            acts = vgg16.apply(vgg_params, y, all_layers, compute_dtype=config.compute_dtype)
         total, parts = losses.perceptual_loss(
             acts, tgt, target_grams, content_w, style_w, y, config.beta
         )
@@ -112,18 +167,26 @@ def make_grad_fn(
     return grad_fn
 
 
+def to_device(batch, device: str | torch.device = "cuda") -> torch.Tensor:
+    """A numpy or torch NHWC batch as a float32 tensor on `device`."""
+    if not torch.is_tensor(batch):
+        batch = torch.from_numpy(np.asarray(batch, np.float32))
+    return batch.to(device, non_blocking=True)
+
+
 def make_train_step(
-    vgg_params: vgg16.Params, target_grams: Mapping[str, torch.Tensor], config: TrainConfig
+    vgg_params: vgg16.Params,
+    target_grams: Mapping[str, torch.Tensor],
+    config: TrainConfig,
+    *,
+    fused_content_tower: bool = False,
 ) -> Callable[[TrainState, Any], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build (state, batch) -> (state, metrics). The state is updated in
     place; the metrics stay on the device (reading them syncs)."""
-    grad_fn = make_grad_fn(vgg_params, target_grams, config)
+    grad_fn = make_grad_fn(vgg_params, target_grams, config, fused_content_tower=fused_content_tower)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        device = next(state.net.parameters()).device
-        if not torch.is_tensor(batch):
-            batch = torch.from_numpy(np.asarray(batch, np.float32))
-        batch = batch.to(device, non_blocking=True)
+        batch = to_device(batch, next(state.net.parameters()).device)
         state.optimizer.zero_grad(set_to_none=True)
         parts = grad_fn(state.net, batch)
         state.optimizer.step()

@@ -33,6 +33,21 @@ def imread(path: str | Path) -> np.ndarray:
     return np.asarray(Image.open(path).convert("RGB"))
 
 
+def imdecode(data: bytes) -> np.ndarray:
+    """Decode encoded image bytes to an RGB uint8 HWC array (imread for
+    bytes already in memory); raises ValueError on bytes that do not decode."""
+    if _HAVE_CV2:
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError("undecodable image bytes")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    import io
+
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
 def imresize(img: np.ndarray, scale: float) -> np.ndarray:
     """Scale both axes by `scale`: cubic when upscaling, area when
     downscaling, identity at 1.0."""

@@ -161,6 +161,33 @@ def test_vgg_truncates_and_odd_pools(rng, vgg_np):
         TV.apply(params, torch.from_numpy(x), ["conv9_9"])
 
 
+@pytest.mark.parametrize("pool,layers", [("pool1", ["conv2_2", "pool2"]), ("pool3", ["conv4_1", "conv4_3"])])
+def test_vgg_input_layer_continues_the_tower(rng, vgg_np, pool, layers):
+    """apply(pool activation, input_layer=pool) gives the full tower's
+    deeper activations, as the JAX package's continuation does."""
+    x = rng.uniform(0, 255, (2, 32, 32, 3)).astype(np.float32)
+    params = convert.params_from_numpy(vgg_np, device="cpu")
+    full = TV.apply(params, torch.from_numpy(x), [pool] + layers)
+    got = TV.apply(params, full[pool], layers, input_layer=pool)
+    ref = JV.apply(vgg_np, jnp.asarray(full[pool].numpy()), layers, input_layer=pool)
+    assert got.keys() == set(layers)
+    for name in layers:
+        torch.testing.assert_close(got[name], full[name], rtol=0, atol=0)
+        r = np.asarray(ref[name])
+        np.testing.assert_allclose(got[name].numpy(), r, rtol=0, atol=1e-4 * np.abs(r).max(), err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "input_layer,layers,match",
+    [("conv2_1", ["conv3_1"], "pool boundary"), ("pool2", ["conv2_2", "conv3_1"], "cannot be computed"),
+     ("pool3", ["pool2"], "end before")],
+)
+def test_vgg_input_layer_rejects(vgg_np, input_layer, layers, match):
+    params = convert.params_from_numpy(vgg_np, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        TV.apply(params, torch.zeros(1, 4, 4, 128), layers, input_layer=input_layer)
+
+
 def test_vgg_load_npz_and_layer_order(tmp_path, vgg_np):
     flat = {f"{n}_{k}": v for n, p in vgg_np.items() for k, v in p.items()}
     flat["fc6_W"] = np.zeros((2, 2), np.float32)
