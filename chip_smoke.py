@@ -19,34 +19,51 @@ Phases, each raising on failure (the script then exits non-zero):
                torch.matmul on the same features, eagerly and on the
                device alone (CUDA graph replays), beside the card's bound
                and the launch plan
-  4. slice   — `faststyle_tpu_torch.cli.train` for 6 steps at b4@256, full
+  4. repro   — two f32 b4@256 3-step train runs from one init, in a fresh
+               process under each of: the defaults, cudnn.deterministic,
+               cudnn.benchmark, CUBLAS_WORKSPACE_CONFIG=:4096:8 (bit-equal
+               or not); every convolution of the step run twice, forward
+               and backward (which gradients differ); ms/step with and
+               without cudnn.deterministic in float32 and bfloat16
+  5. slice   — `faststyle_tpu_torch.cli.train` for 6 steps at b4@256, full
                width (random VGG16 weights and synthetic images from a seed),
                with the Gram launch count; one GPU train step against the
                same step on the CPU; steps/s of the train step
-  5. records — `faststyle_tpu_torch.cli.tfrecords_writer` turns 64
+  6. records — `faststyle_tpu_torch.cli.tfrecords_writer` turns 64
                synthetic 640x480 JPEGs, a PNG and a grayscale JPEG into 4
                shards (C++ scan with CRCs against the plain Python reader, a
                flipped byte raises); `cli.train --train_dir` for 6 steps at
                b4@256 with the Gram launch count; `--data_parallel` for 3
                steps through `torch.distributed.run` (one NCCL rank) against
-               a plain 3-step run, both with deterministic algorithms;
+               two plain 3-step runs, all three with cudnn.deterministic
+               (the two plain runs bit-equal);
                `--debug_nans` clean, and a NaN batch
                raising FloatingPointError; the fused content tower against
                the plain step, then both timed in float32 and bfloat16; the
                Batchers' images/s
-  6. serve   — `faststyle_tpu_torch.cli.stylize_image` in float32 against
+  7. serve   — `faststyle_tpu_torch.cli.stylize_image` in float32 against
                the seven TF oracle PNGs (SSIM >= 0.99); uint8 output within
                one count of the CPU Stylizer; bfloat16 against float32
                (SSIM >= 0.98); a TF1 checkpoint written by the port serves
                bit-exact with the .npz; packed-u8 input, output and both
                bit-exact with the plain uint8 path at 1080x1920 and 250x243,
                resize and deconv; --input_dir over three images, two sizes
-  7. stream  — `faststyle_tpu_torch.cli.stylize_webcam` on 120 synthetic
+               (ShardedStylizer over every visible card)
+  8. parallel — ShardedStylizer over ["cuda:0"] * 2 against the single-card
+               Stylizer (float32 1e-2, uint8 one count, packed I/O
+               bit-exact with its uint8 path); SpatialStylizer over
+               ["cuda:0"] * 4 on a 4K frame (4-way) and a 1080p deconv
+               frame (3-way) within 5e-2 of the single-card forward, 4K in
+               bfloat16 (SSIM >= 0.99), with 4K ms/frame single and 4-way
+               as readings; `cli.stylize_image --spatial` (1-way) against
+               the plain CLI; `parallel.dryrun.run(1)` with its Gram
+               launch count
+  9. stream  — `faststyle_tpu_torch.cli.stylize_webcam` on 120 synthetic
                1920x1080 frames in bfloat16 and float32 at pipeline depths 1
                and 2, with --packed_fetch, at 512x512, and through a short
                MJPG video: fps and p50/p99 latency; the forward's device-alone
                ms per frame (CUDA-graph replays)
-  8. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
+ 10. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
                chicago.jpg at its native 474x712 (random VGG16), with the Gram
                launch count; 5 steps in bfloat16; 3 steps at 256x256 on the
                card against the CPU from the same start
@@ -61,6 +78,7 @@ import concurrent.futures
 import contextlib
 import csv
 import functools
+import io
 import json
 import math
 import os
@@ -83,7 +101,9 @@ from faststyle_tpu_torch.compat import tf1_checkpoint
 from faststyle_tpu_torch.data import pipeline, tfrecord
 from faststyle_tpu_torch.inference import load_params
 from faststyle_tpu_torch.models import transform_net, vgg16
+from faststyle_tpu_torch.ops import layers
 from faststyle_tpu_torch.ops.cuda import build, gram
+from faststyle_tpu_torch.parallel import data_parallel, dryrun, spatial
 from faststyle_tpu_torch.training import loop, slow_style, train_step
 from faststyle_tpu_torch.utils import image_io
 from faststyle_tpu_torch.utils.metrics import ssim
@@ -499,6 +519,143 @@ def steps_per_sec(vgg_gpu, compute_dtype, iters: int = 10, fused: bool = False) 
     print(f"train step b4@256 {name}: {rate:.3f} steps/s ({1e3 / rate:.3f} ms/step)")
     return rate
 
+REPRO_STEPS = 3
+STYLE_LAYERS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3")
+# cuBLAS's workspace setting for bitwise-reproducible products (the Gram's
+# backward is a matmul); read once, when the process makes its first handle
+CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+# environment) of each setting that two f32 3-step runs are held under, one
+# fresh process each, so the cuBLAS setting precedes the first handle
+REPRO_SETTINGS = {
+    "default": (False, False, {}),
+    "cudnn.deterministic": (True, False, {}),
+    "cudnn.benchmark": (False, True, {}),
+    "CUBLAS_WORKSPACE_CONFIG=:4096:8": (False, False, CUBLAS_DETERMINISTIC),
+}
+REPRO_TIMED = 4  # steps_per_sec calls per setting and dtype, in turns
+
+
+def repro_worker(setting: str) -> None:
+    """Two f32 b4@256 runs of REPRO_STEPS train steps from one init on the
+    same batches under `setting`; prints one JSON line with their largest
+    difference."""
+    det, bench, _ = REPRO_SETTINGS[setting]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = det
+    torch.backends.cudnn.benchmark = bench
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repro_") as tmp:
+        vgg = vgg16.load_npz(write_inputs(Path(tmp))[0], device="cuda")
+    rng = np.random.default_rng(SEED + 4)
+    style = rng.uniform(0, 255, (1, 256, 256, 3)).astype(np.float32)
+    batches = rng.uniform(0, 255, (REPRO_STEPS, 4, 256, 256, 3)).astype(np.float32)
+    config = train_step.TrainConfig.make()
+    grams = slow_style.style_target_grams(vgg, style, STYLE_LAYERS)
+    runs = []
+    for _ in range(2):
+        state = train_step.init_state(config, seed=SEED, device="cuda")
+        step = train_step.make_train_step(vgg, grams, config)
+        for batch in batches:
+            state, _ = step(state, batch)
+        runs.append(torch.cat([p.detach().flatten() for p in state.net.parameters()]))
+    d = (runs[0] - runs[1]).abs()
+    print(json.dumps({"setting": setting, "equal": bool(torch.equal(runs[0], runs[1])), "max_diff": float(d.max()),
+                      "share": float((d > 1e-5).float().mean())}))
+
+
+class ConvRecorder(torch.overrides.TorchFunctionMode):
+    """Records the (input shape, input strides, weight shape, stride,
+    padding, dtype) of every distinct conv2d call under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if getattr(func, "__name__", "") == "conv2d":
+            x, w = args[0], args[1]
+            stride = kwargs.get("stride", args[3] if len(args) > 3 else 1)
+            padding = kwargs.get("padding", args[4] if len(args) > 4 else 0)
+            key = (tuple(x.shape), tuple(x.stride()), tuple(w.shape), str(stride), str(padding), x.dtype)
+            self.calls[key] = (stride, padding)
+        return func(*args, **kwargs)
+
+
+def conv_repro(vgg) -> list:
+    """Every distinct convolution of one f32 b4@256 train step, run forward
+    and backward twice on the same random input, weight and output
+    gradient with cudnn.deterministic off: the ones whose input or weight
+    gradient differs between the two runs."""
+    config = train_step.TrainConfig.make()
+    grams = slow_style.style_target_grams(vgg, torch.rand(1, 256, 256, 3, device="cuda") * 255, STYLE_LAYERS)
+    state = train_step.init_state(config, seed=SEED, device="cuda")
+    rec = ConvRecorder()
+    with rec:
+        train_step.make_train_step(vgg, grams, config)(state, torch.rand(4, 256, 256, 3, device="cuda") * 255)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    found = []
+    for (shape, strides, wshape, _, _, dtype), (stride, padding) in rec.calls.items():
+        x0 = torch.empty_strided(shape, strides, device="cuda", dtype=dtype).normal_(generator=gen)
+        w0 = torch.randn(wshape, generator=gen, device="cuda", dtype=dtype)
+        grads = []
+        for _ in range(2):
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            y = torch.nn.functional.conv2d(x, w, stride=stride, padding=padding)
+            if not grads:
+                gy = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype)
+                gy = gy.to(memory_format=torch.channels_last)
+            y.backward(gy)
+            grads.append((x.grad, w.grad))
+        dx = float((grads[0][0] - grads[1][0]).abs().max())
+        dw = float((grads[0][1] - grads[1][1]).abs().max())
+        line = f"input {list(shape)} weight {list(wshape)} stride {stride}: input grad {dx:.3e}, weight grad {dw:.3e}"
+        print(("  differs " if dx or dw else "  equal   ") + line, flush=True)
+        if dx or dw:
+            found.append(line)
+    return found
+
+
+def repro_phase() -> dict:
+    """Which setting makes two f32 b4@256 3-step runs bit-equal, which
+    convolutions differ between runs by default, and what the setting costs
+    per f32 and bf16 step (steps/s in turns: off, on, on, off)."""
+    phase("repro")
+    check = Checks("repro")
+    results = {}
+    for setting, (_, _, env) in REPRO_SETTINGS.items():
+        proc = port_subprocess([str(REPO / "chip_smoke.py"), "--repro-worker", setting], REPO, timeout=300,
+                               env_extra=env)
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        results[setting] = r
+        print(f"two f32 b4@256 {REPRO_STEPS}-step runs, {setting}: bit-equal {r['equal']}, max diff "
+              f"{r['max_diff']:.3e}, {r['share']:.3%} of entries beyond 1e-5", flush=True)
+    check(results["cudnn.deterministic"]["equal"], "cudnn.deterministic makes two runs bit-equal")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_repro_") as tmp:
+        vgg = vgg16.load_npz(write_inputs(Path(tmp))[0], device="cuda")
+    saved = torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.deterministic = False
+        differs = conv_repro(vgg)
+        print(f"convolutions whose gradients differ between two runs (cudnn.deterministic off): {len(differs)}")
+        timing = {}
+        for dtype in (None, torch.bfloat16):
+            name = "bfloat16" if dtype else "float32"
+            timing[name] = {False: [], True: []}
+            for det in [False, True, True, False] * (REPRO_TIMED // 2):
+                torch.backends.cudnn.deterministic = det
+                print(f"  cudnn.deterministic={det}: ", end="")
+                timing[name][det].append(1e3 / steps_per_sec(vgg, dtype))
+            off, on = (float(np.median(timing[name][d])) for d in (False, True))
+            print(f"{name} ms/step, median of {REPRO_TIMED}: default {off:.3f}, cudnn.deterministic {on:.3f} "
+                  f"({on / off - 1:+.2%})", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    check.done()
+    return {"settings": results, "differs": differs, "ms": timing}
+
+
 RECORD_PHOTOS = 64  # synthetic 640x480 JPEGs, COCO's usual size, plus one PNG and one grayscale JPEG
 RECORD_STEPS = 6
 DP_STEPS = 3
@@ -526,32 +683,24 @@ def write_photos(root: Path) -> Path:
     return d
 
 
-# cuBLAS's workspace setting for bitwise-reproducible products (the Gram's
-# backward is a matmul), required by torch.use_deterministic_algorithms
-CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-# cli.train with deterministic algorithms, for torch.distributed.run to start
+# cli.train with cudnn.deterministic, for torch.distributed.run to start
 DETERMINISTIC_TRAIN = """import runpy
 import torch
-torch.use_deterministic_algorithms(True)
+torch.backends.cudnn.deterministic = True
 runpy.run_module("faststyle_tpu_torch.cli.train", run_name="__main__", alter_sys=True)
 """
 
 
 @contextlib.contextmanager
-def deterministic():
-    """Deterministic algorithms in this process until the block ends."""
-    saved = {k: os.environ.get(k) for k in CUBLAS_DETERMINISTIC}
-    os.environ.update(CUBLAS_DETERMINISTIC)
-    torch.use_deterministic_algorithms(True)
+def deterministic_cudnn():
+    """cudnn.deterministic in this process until the block ends: the one
+    setting that makes the train step bit-reproducible (phase repro)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     try:
         yield
     finally:
-        torch.use_deterministic_algorithms(False)
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
+        torch.backends.cudnn.deterministic = saved
 
 
 def port_subprocess(args: list, cwd: Path, timeout: int, env_extra: dict | None = None) -> subprocess.CompletedProcess:
@@ -666,23 +815,24 @@ def records_phase() -> dict:
               and all(math.isfinite(v) for p in parts for v in p.values()),
               f"checkpoints at 3 and 6: {ckpts}; final npz; loss parts {parts}; steps/s between the checkpoints {rate}")
 
-        # 3. --data_parallel through torch.distributed.run, against a plain
-        # run, both with deterministic algorithms: the plain step alone is not
-        # bitwise reproducible on the card (two runs of it drifted 2.0e-3
-        # apart in 3 steps), which would hide what the data-parallel path
-        # changes; a second plain run shows the floor
-        with deterministic():
+        # 3. --data_parallel through torch.distributed.run, against plain
+        # runs, all three with cudnn.deterministic: the plain step alone is
+        # not bitwise reproducible on the card (phase repro), which would
+        # hide what the data-parallel path changes; two plain runs show it
+        with deterministic_cudnn():
             train_cli(root / "plain3", records, vgg_path, DP_STEPS)
             train_cli(root / "plain3b", records, vgg_path, DP_STEPS)
         floor = params_diff(root / "plain3" / "models" / "model_final.npz",
                             root / "plain3b" / "models" / "model_final.npz")
+        check(floor[0] == 0.0, f"two plain cli.train runs, {DP_STEPS} steps at b4@256 float32, same flags, "
+                               f"cudnn.deterministic: params max diff {floor[0]:.3e} (need 0: bit-equal)")
         (root / "dp3").mkdir()
         launcher = root / "deterministic_train.py"
         launcher.write_text(DETERMINISTIC_TRAIN)
         t0 = time.perf_counter()
-        proc = port_subprocess(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1", str(launcher),
-                                *records_args(records, vgg_path, DP_STEPS), "--data_parallel"],
-                               root / "dp3", timeout=600, env_extra=CUBLAS_DETERMINISTIC)
+        proc = port_subprocess(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                                str(launcher), *records_args(records, vgg_path, DP_STEPS), "--data_parallel"],
+                               root / "dp3", timeout=600)
         wall = time.perf_counter() - t0
         diff, share = params_diff(root / "plain3" / "models" / "model_final.npz",
                                   root / "dp3" / "models" / "model_final.npz")
@@ -692,9 +842,9 @@ def records_phase() -> dict:
                   for k in LOSS_PARTS)
         check(diff <= 2.001 * lr and share <= 0.01 and rel <= 1e-3 and "final weights" in proc.stdout,
               f"--data_parallel, one NCCL rank through torch.distributed.run, {DP_STEPS} steps in {wall:.3f} s wall "
-              f"(process start included), deterministic algorithms: loss parts at step {DP_STEPS} within {rel:.2e} "
-              f"relative of the plain run's (need <= 1e-3); params max diff {diff:.3e} (need <= {2 * lr}), "
-              f"{share:.3%} of entries beyond 1e-5 (need <= 1%); two plain runs: {floor[0]:.3e}, {floor[1]:.3%}")
+              f"(process start included), cudnn.deterministic: loss parts at step {DP_STEPS} within {rel:.2e} relative of the plain "
+              f"run's (need <= 1e-3); params max diff {diff:.3e} (need <= {2 * lr}), {share:.3%} of entries beyond "
+              f"1e-5 (need <= 1%)")
 
         # 4. NaN checking
         state, wall = train_cli(root / "nans2", records, vgg_path, 2, "--debug_nans")
@@ -1010,23 +1160,191 @@ def slow_style_phase() -> dict:
     return {"launches": launches}
 
 
-def main() -> None:
-    device_phase()
+SHARDED_FRAMES = 5  # over two entries: padded to 6, shards of 3
+SPATIAL_ATOL = 5e-2  # of 255: the shards add their IN partial sums in another order
+SPATIAL_SSIM_BF16_MIN = 0.99
+SPATIAL_TIMED = 3  # host-clock calls per turn, in turns single, sharded, sharded, single
+
+
+def turns_ms(fns: dict) -> dict:
+    """Median ms of each of two device-resident callables, timed on the host
+    clock to a synchronize in turns (a, b, b, a), SPATIAL_TIMED calls a turn."""
+    (a, fa), (b, fb) = fns.items()
+    times = {a: [], b: []}
+    for name, fn in ((a, fa), (b, fb)):
+        fn()  # warm up: cuDNN's first-call set-up
+    torch.cuda.synchronize()
+    for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        for _ in range(SPATIAL_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def multi_card_check(check: Checks, starry, params, frames, single_f32, rng, cards: list, card: str,
+                     readings: dict) -> None:
+    """ShardedStylizer and SpatialStylizer over distinct cards, against the
+    first card alone; 4K ms/frame over the cards as a reading."""
+    out = data_parallel.ShardedStylizer(starry, cards).stylize_batch(frames.astype(np.float32))
+    err = float(np.abs(out - single_f32).max())
+    check(err <= 1e-2, f"ShardedStylizer over {cards}: max |sharded - single-card Stylizer| {err:.3e} (need <= 1e-2)")
+    h, w = 2160, 3840
+    img = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    s = spatial.SpatialStylizer(params, cards)
+    n = s.shards_for(h)
+    x = torch.from_numpy(img).cuda()
+    with torch.inference_mode():
+        ref = transform_net.apply(params, x[None])[0]
+        err = float((s._fn(h, w)(x) - ref).abs().max())
+        ms = turns_ms({"single": lambda: transform_net.apply(params, x[None]), "sharded": lambda: s._fn(h, w)(x)})
+    check(n > 1 and err <= SPATIAL_ATOL, f"SpatialStylizer 4K float32 over {cards}: {n}-way; max |sharded - "
+                                         f"single-card forward| {err:.3e} (need <= {SPATIAL_ATOL})")
+    readings[f"starry 4K float32 over {len(cards)} cards"] = ms
+    print(f"  reading, starry 4K float32 {h}x{w} on {len(cards)} x {card}: one card "
+          f"{ms['single']:.3f} ms/frame, {n}-way over the cards {ms['sharded']:.3f} ms/frame (device-resident "
+          f"frame on cuda:0, median of {2 * SPATIAL_TIMED})", flush=True)
+
+
+def parallel_phase(smi: str) -> dict:
+    """Serving across device lists on the one card: ShardedStylizer against
+    the single-card Stylizer; SpatialStylizer at 4K (4-way) and 1080p deconv
+    (auto-reduced to 3-way) against the single-card forward, and in bf16;
+    cli.stylize_image --spatial; parallel.dryrun as a world of one with its
+    Gram launches counted."""
+    phase("parallel")
+    check = Checks("parallel")
+    card = smi.splitlines()[0]
+    starry = inference.load_params_numpy(STARRY)
+    rng = np.random.default_rng(SEED + 5)
+
+    # 1. batch-sharded serving over two entries of the card
+    frames = rng.integers(0, 256, (SHARDED_FRAMES, 256, 256, 3), dtype=np.uint8)
+    two = ["cuda:0"] * 2
+    f32 = {"sharded": data_parallel.ShardedStylizer(starry, two).stylize_batch(frames.astype(np.float32)),
+           "single": inference.Stylizer(params=starry).stylize_batch(frames.astype(np.float32)).cpu().numpy()}
+    err = float(np.abs(f32["sharded"] - f32["single"]).max())
+    check(f32["sharded"].shape == frames.shape and err <= 1e-2,
+          f"ShardedStylizer over {two}, {SHARDED_FRAMES} frames of {frames.shape[1]}x{frames.shape[2]} float32: "
+          f"{f32['sharded'].shape}, max |sharded - single-card Stylizer| {err:.3e} (need <= 1e-2)")
+    u8 = data_parallel.ShardedStylizer(starry, two, output_uint8=True).stylize_batch(frames)
+    single_u8 = inference.Stylizer(params=starry, output_uint8=True).stylize_batch(frames).cpu().numpy()
+    worst, n = count_diff(u8, single_u8)
+    check(u8.dtype == np.uint8 and worst <= 1, f"ShardedStylizer uint8: within {worst} count(s) of the single-card "
+                                               f"Stylizer, {n} values differ")
+    packed = data_parallel.ShardedStylizer(starry, two, packed_input=True, packed_output=True).stylize_batch(frames)
+    _, n = count_diff(packed, u8) if packed.shape == u8.shape else (None, -1)
+    check(n == 0, f"ShardedStylizer packed-u8 in and out: {packed.shape}, {n} values differ from its uint8 path "
+                  "(need 0)")
+
+    # 2. row-sharded serving of one frame, four entries of the card
+    four = ["cuda:0"] * 4
+    params = inference.load_params(STARRY)
+    deconv_params = transform_net.init_params(torch.Generator().manual_seed(SEED), "deconv", device="cuda")
+    readings = {}
+    for name, p, method, (h, w), dtype, want_n in (
+        ("starry 4K float32", params, "resize", (2160, 3840), None, 4),
+        ("deconv 1080p float32", deconv_params, "deconv", (1080, 1920), None, 3),
+        ("starry 4K bfloat16", params, "resize", (2160, 3840), torch.bfloat16, 4),
+    ):
+        img = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+        s = spatial.SpatialStylizer(p, four, compute_dtype=dtype, upsample_method=method)
+        out = s(img)
+        x = torch.from_numpy(img).cuda()
+        with torch.inference_mode():
+            ref = transform_net.apply(p, x[None], method, compute_dtype=dtype)[0].float().cpu().numpy()
+        err = float(np.abs(out - ref).max()) if out.shape == ref.shape else float("inf")
+        n = s.shards_for(h)
+        if dtype is None:
+            check(n == want_n and err <= SPATIAL_ATOL,
+                  f"SpatialStylizer {name} {h}x{w} over {len(four)} entries: {n}-way (need {want_n}); max |sharded - "
+                  f"single-card forward| {err:.3e} (need <= {SPATIAL_ATOL})")
+        else:
+            score = ssim(np.clip(out, 0, 255).astype(np.uint8), np.clip(ref, 0, 255).astype(np.uint8))
+            check(n == want_n and score >= SPATIAL_SSIM_BF16_MIN,
+                  f"SpatialStylizer {name} {h}x{w}: {n}-way (need {want_n}); SSIM against the bfloat16 single-card "
+                  f"forward {score:.5f} (need >= {SPATIAL_SSIM_BF16_MIN}); max |difference| {err:.3e}")
+        if h == 2160:
+            fn = s._fn(h, w)
+            # the same windows walked one after another by this thread with
+            # the plain per-window IN: what the shard threads add beyond it
+            _, win, starts = spatial.windows(h, n)
+            with torch.inference_mode():
+                padded = layers.reflect_pad(x[None].to(dtype or torch.float32), 40)
+                ms = turns_ms({"single": lambda: transform_net.apply(p, x[None], method, compute_dtype=dtype),
+                               "sharded": lambda: fn(x)})
+                ms.update(turns_ms({"sharded": lambda: fn(x), "windows": lambda: [
+                    transform_net._walk_padded(p, padded[:, s0 : s0 + win], method) for s0 in starts]}))
+            readings[name] = ms
+            print(f"  reading, {name} {h}x{w} on {card}: single card {ms['single']:.3f} ms/frame, {n}-way on the one "
+                  f"card {ms['sharded']:.3f} ms/frame, its {n} windows walked in one thread {ms['windows']:.3f} ms "
+                  f"(device-resident frame, median of {2 * SPATIAL_TIMED} each)", flush=True)
+            del padded
+        del x, out, ref
+
+    # 2b. on a machine with more cards, the same over every card: the
+    # device lists then hold distinct devices, and partial sums cross them
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    if len(cards) > 1:
+        multi_card_check(check, starry, params, frames, f32["single"], rng, cards, card, readings)
+
+    # 3. the CLI: --spatial on one card is 1-way, the plain forward
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        root = Path(tmp)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_image.main(["--input_img_path", str(ASSETS / "chicago.jpg"), "--output_img_path",
+                            str(root / "spatial.png"), "--model_path", str(STARRY), "--spatial"])
+        said = buf.getvalue()
+        print(said, end="")
+        plain = stylize_cli(root, STARRY, "resize", ASSETS / "chicago.jpg")
+        got = image_io.imread(root / "spatial.png")
+        worst, n = count_diff(got, plain) if got.shape == plain.shape else (None, -1)
+        check("Evaluating (1-way row sharding)..." in said and worst is not None and worst <= 1,
+              f"cli.stylize_image --spatial on chicago.jpg, one card: {got.shape}, within {worst} count(s) of the "
+              f"plain CLI ({n} values differ)")
+
+    # 4. the dry run, as a world of one on the card: its train step is the
+    # main path's Gram launches here (over every card when there are more)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: NCCL's bootstrap stays on the loopback
+    buf = io.StringIO()
+    gram.GramFunction.launches = 0
+    with contextlib.redirect_stdout(buf):
+        dryrun.run(len(cards))
+    torch.cuda.synchronize()
+    launches = gram.GramFunction.launches
+    print(buf.getvalue(), end="")
+    want = 4 + 4  # the target Grams, then the step's four style layers
+    check(f"[dryrun] {len(cards)}-device cuda list OK" in buf.getvalue() and launches >= want,
+          f"parallel.dryrun.run({len(cards)}): gram launches {launches} (need >= {want})")
+    check.done()
+    return {"launches": launches, "spatial_ms": readings}
+
+
+def main(argv: list) -> None:
+    """Every phase in order, then the kernels and ok lines."""
+    if argv[:1] == ["--repro-worker"]:
+        repro_worker(argv[1])
+        return
+    smi = device_phase()
     build_phase()
     k = kernel_phase()
+    repro_phase()
     s = slice_phase()
     r = records_phase()
     serve_phase()
+    p = parallel_phase(smi)
     stream_phase()
     ss = slow_style_phase()
     print(f"gram launches: {s['launches']} on the train slice, {r['launches']} training from TFRecords, "
-          f"{ss['launches']} on slow-style")
+          f"{p['launches']} in parallel.dryrun, {ss['launches']} on slow-style")
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
         "source": "faststyle_tpu_torch/csrc/gram.cu",
         "replaces": "faststyle_tpu/ops/pallas/gram.py:22",
-        "launches": s["launches"] + r["launches"] + ss["launches"],
+        "launches": s["launches"] + r["launches"] + p["launches"] + ss["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "kernel_ms": k["kernel_ms"],
@@ -1044,5 +1362,5 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
     sys.exit(0)

@@ -4,7 +4,8 @@ The JAX package `faststyle_tpu` is the reference; this package mirrors its
 module names so each counterpart is easy to find, keeps its public layouts
 (NHWC activations, HWIO weights in files) and imports nothing of it.
 
-Public surface (training, serving, Gatys slow-style, TFRecords, data parallelism):
+Public surface (training, serving, Gatys slow-style, TFRecords, data parallelism,
+sharded serving):
     faststyle_tpu_torch.ops.layers           — conv / norm / pool primitives
     faststyle_tpu_torch.ops.cuda.gram        — the Gram kernel (CUDA C++, sm_90a)
     faststyle_tpu_torch.models.transform_net — Johnson-style image transform net
@@ -15,7 +16,9 @@ Public surface (training, serving, Gatys slow-style, TFRecords, data parallelism
     faststyle_tpu_torch.compat.tf1_checkpoint — TF1 checkpoints without TensorFlow
     faststyle_tpu_torch.data.pipeline        — TFRecord / image-dir batchers + device prefetch
     faststyle_tpu_torch.data.{tfrecord,writer} — TFRecord codec (host C++) and dataset writer
-    faststyle_tpu_torch.parallel             — data-parallel training over torch.distributed
+    faststyle_tpu_torch.parallel             — data-parallel training over torch.distributed,
+                                               batch- and row-sharded serving over a device
+                                               list, the multi-device dry run
     faststyle_tpu_torch.convert              — weights between the npz and torch layouts
     faststyle_tpu_torch.cli.{train,stylize_image,stylize_webcam,slow_style,tfrecords_writer}
                                              — `python -m faststyle_tpu_torch.cli.<name>`

@@ -8,9 +8,11 @@ The flags are faststyle_tpu's stylize_image CLI's, with its defaults, plus
 `--device {cuda,cpu}` (default cuda; there is no silent CPU fallback).
 `--model_path` takes a TF1 checkpoint prefix or a `.npz` (a `.ckpt` name
 resolves to the `.npz` beside it when no TF1 files exist). `--input_dir`
-groups the images by shape and stylizes up to `--batch_size` of them per
-call on the one card, uint8 out of the device. `--spatial` exits with a
-"not yet ported" message. TF32 is off (`full_float32`).
+groups the images by shape and spreads up to `--batch_size` of them per
+call over every visible card (`parallel.data_parallel.ShardedStylizer`),
+uint8 out of the devices. `--spatial` shards one image's rows over every
+visible card (`parallel.spatial.SpatialStylizer`). With `--device cpu`
+both run on one CPU entry. TF32 is off (`full_float32`).
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-_NOT_PORTED_SPATIAL = "--spatial is not yet ported (ROADMAP.md, modules to port: 'parallel/')"
 _IMAGE_SUFFIXES = {".jpg", ".jpeg", ".png"}
 
 
@@ -55,14 +56,18 @@ def setup_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--input_dir",
         default=None,
-        help="Stylize every image in a directory instead of one file; same-size images are batched.",
+        help="Stylize every image in a directory instead of one file; same-size "
+        "images are batched and sharded across all visible cards.",
     )
     parser.add_argument("--output_dir", default="./results", help="Output directory for --input_dir mode.")
     parser.add_argument("--batch_size", default=8, type=int, help="Max images per device batch in --input_dir mode.")
     parser.add_argument(
         "--spatial",
         action="store_true",
-        help="Shard ONE giant image's rows across cards (not yet ported).",
+        help="Shard ONE giant image's rows across all cards "
+        "(parallel.spatial; both 'resize' and 'deconv' models). Requires "
+        "multiple devices to help; auto-falls back to single-device for "
+        "misaligned heights.",
     )
     parser.add_argument(
         "--device",
@@ -73,13 +78,21 @@ def setup_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _devices(args):
+    """Every visible card, or one CPU entry under --device cpu."""
+    return ["cpu"] if args.device == "cpu" else None
+
+
 def stylize_directory(args, compute_dtype) -> int:
-    """Batch mode: group the images by (resized) shape and stylize up to
-    --batch_size of each group per call, uint8 out of the device. Returns
-    the number of images written."""
+    """Batch mode: group the images by (resized) shape and spread up to
+    --batch_size of each group per call over the devices
+    (`ShardedStylizer`), uint8 frames in (cast on the device, the same
+    values as the JAX CLI's float32 frames) and uint8 out. Returns the
+    number of images written."""
     import numpy as np
 
-    from faststyle_tpu_torch.inference import Stylizer
+    from faststyle_tpu_torch.inference import load_params_numpy
+    from faststyle_tpu_torch.parallel.data_parallel import ShardedStylizer
     from faststyle_tpu_torch.utils import image_io
 
     in_dir, out_dir = Path(args.input_dir), Path(args.output_dir)
@@ -87,12 +100,12 @@ def stylize_directory(args, compute_dtype) -> int:
     files = sorted(p for p in in_dir.iterdir() if p.suffix.lower() in _IMAGE_SUFFIXES)
     if not files:
         raise SystemExit(f"no images in {in_dir}")
-    stylizer = Stylizer(
-        model_path=args.model_path,
+    stylizer = ShardedStylizer(
+        load_params_numpy(args.model_path),
+        _devices(args),
         upsample_method=args.upsample_method,
         compute_dtype=compute_dtype,
-        output_uint8=True,
-        device=args.device,
+        output_uint8=True,  # clip and cast on the device: a quarter of float32's bytes back
     )
 
     def load(path: Path):
@@ -125,7 +138,7 @@ def stylize_directory(args, compute_dtype) -> int:
             batch = np.stack([load(f) for f in chunk])
             if batch.shape[1:] != tuple(shape):  # probe and decode disagree
                 raise SystemExit(f"{chunk[0]}: decoded shape {batch.shape[1:]} != probed {shape}")
-            out = stylizer.stylize_batch(batch).cpu().numpy()
+            out = stylizer.stylize_batch(batch)
             for f, img_out in zip(chunk, out):
                 image_io.imwrite(out_dir / f"styled_{f.name}", img_out)
                 done += 1
@@ -138,29 +151,46 @@ def main(argv=None):
 
     full_float32()
     args = setup_parser().parse_args(argv)
-    if args.spatial:
-        raise SystemExit(_NOT_PORTED_SPATIAL)
 
+    import numpy as np
     import torch
 
-    from faststyle_tpu_torch.inference import Stylizer
+    from faststyle_tpu_torch.inference import Stylizer, load_params_numpy
     from faststyle_tpu_torch.utils import image_io
 
     dtype = torch.bfloat16 if args.precision == "bfloat16" else None
     if args.input_dir:
+        if args.spatial:
+            raise SystemExit(
+                "--spatial shards ONE image's rows; with --input_dir use the "
+                "default batch-sharded mode (images spread across chips)"
+            )
         return stylize_directory(args, dtype)
     if not args.input_img_path:
         raise SystemExit("need --input_img_path (or --input_dir)")
 
-    stylizer = Stylizer(
-        model_path=args.model_path,
-        upsample_method=args.upsample_method,
-        compute_dtype=dtype,
-        device=args.device,
-    )
     img = image_io.imresize(image_io.imread(args.input_img_path), args.content_target_resize)
-    print("Evaluating...")
-    out = stylizer(img)
+    if args.spatial:
+        from faststyle_tpu_torch.parallel.spatial import SpatialStylizer
+
+        spatial = SpatialStylizer(
+            load_params_numpy(args.model_path),
+            _devices(args),
+            compute_dtype=dtype,
+            upsample_method=args.upsample_method,
+        )
+        n = spatial.shards_for(img.shape[0])
+        print(f"Evaluating ({n}-way row sharding)...")
+        out = np.clip(spatial(img), 0, 255).astype(np.uint8)
+    else:
+        stylizer = Stylizer(
+            model_path=args.model_path,
+            upsample_method=args.upsample_method,
+            compute_dtype=dtype,
+            device=args.device,
+        )
+        print("Evaluating...")
+        out = stylizer(img)
     print("Saving image.")
     Path(args.output_img_path).parent.mkdir(parents=True, exist_ok=True)
     image_io.imwrite(args.output_img_path, out)

@@ -23,7 +23,7 @@ output.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Generator
 
 import torch
 from torch import nn
@@ -31,6 +31,11 @@ from torch import nn
 from faststyle_tpu_torch.ops import layers as L
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+# a walk's generator: yields (x, scale, shift) at each instance norm, is sent
+# the normalized x, returns (output, taps)
+Walk = Generator[
+    tuple[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor, tuple[torch.Tensor, Dict[str, torch.Tensor]]
+]
 
 # (kernel, cin, cout, stride) per block — the instance-norm "halved" widths
 _INIT_SPECS = [(9, 3, 16, 1), (3, 16, 32, 2), (3, 32, 64, 2)]
@@ -124,24 +129,26 @@ def apply_with_features(
     return y, feats
 
 
-def _walk_padded(
-    params: Params, h: torch.Tensor, upsample_method: str, fused_upsample: bool = True
-) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The walk after the reflect pad: the net on an already padded NHWC
-    tensor in its compute dtype; returns the scaled-tanh output and taps."""
+def _walk_steps(params: Params, h: torch.Tensor, upsample_method: str, fused_upsample: bool = True) -> Walk:
+    """The walk after the reflect pad, as a generator: it yields
+    (x, scale, shift) at each of the 16 instance norms, in walk order, takes
+    the normalized tensor back by `send`, and returns the scaled-tanh output
+    and the taps. `_walk_padded` drives it with one norm; `parallel.spatial`
+    drives one per row window in lockstep, with statistics that span the
+    whole frame."""
     feats: Dict[str, torch.Tensor] = {}
     for i, (_k, _ci, _co, s) in enumerate(_INIT_SPECS):
         blk = params[f"initconv_{i}"]
-        h = L.instance_norm(L.conv2d(h, blk["W"], stride=s), blk["INscale"], blk["INshift"])
+        h = yield L.conv2d(h, blk["W"], stride=s), blk["INscale"], blk["INshift"]
         feats[f"init_{i}"] = h
         h = L.relu(h)
 
     for i in range(_NUM_RESBLOCKS):
         blk = params[f"resblock_{i}"]
         r = L.conv2d(h, blk["W1"], padding="VALID")
-        r = L.relu(L.instance_norm(r, blk["INscale1"], blk["INshift1"]))
+        r = L.relu((yield r, blk["INscale1"], blk["INshift1"]))
         r = L.conv2d(r, blk["W2"], padding="VALID")
-        r = L.instance_norm(r, blk["INscale2"], blk["INshift2"])
+        r = yield r, blk["INscale2"], blk["INshift2"]
         h = r + h[:, 2:-2, 2:-2, :]
         feats[f"res_{i}"] = h
 
@@ -153,7 +160,7 @@ def _walk_padded(
             u = L.upsample_conv(h, blk["W"])
         else:
             u = L.upsample_conv_reference(h, blk["W"])
-        u = L.instance_norm(u, blk["INscale"], blk["INshift"])
+        u = yield u, blk["INscale"], blk["INshift"]
         feats[f"up_{i}"] = u
         h = L.relu(u)
 
@@ -162,9 +169,23 @@ def _walk_padded(
         h = L.deconv_same_s1(h, blk["W"]) if fused_upsample else L.transposed_conv2d(h, blk["W"], stride=1)
     else:
         h = L.conv2d(h, blk["W"])
-    h = L.instance_norm(h, blk["INscale"], blk["INshift"])
+    h = yield h, blk["INscale"], blk["INshift"]
     feats["pre_tanh"] = h
     return L.scaled_tanh(h), feats
+
+
+def _walk_padded(
+    params: Params, h: torch.Tensor, upsample_method: str, fused_upsample: bool = True
+) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The walk after the reflect pad: the net on an already padded NHWC
+    tensor in its compute dtype; returns the scaled-tanh output and taps."""
+    steps = _walk_steps(params, h, upsample_method, fused_upsample)
+    try:
+        x = next(steps)
+        while True:
+            x = steps.send(L.instance_norm(*x))
+    except StopIteration as done:
+        return done.value
 
 
 def apply(

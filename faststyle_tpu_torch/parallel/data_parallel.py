@@ -1,23 +1,28 @@
-"""Data-parallel training step over torch.distributed (counterpart of
-faststyle_tpu/parallel/data_parallel.py's `make_dp_train_step`).
+"""Data parallelism: the training step over torch.distributed and
+batch-sharded serving over a device list (counterpart of
+faststyle_tpu/parallel/data_parallel.py).
 
 Every loss term is a sum over the batch, so summing the gradients over
 ranks makes the K-rank step the one-process step on the concatenated
 batch. That is why this is an explicit all-reduce(SUM) and not
 DistributedDataParallel, which averages: an average would rescale the
 gradients Adam sees against its eps and the logged losses. Instance-norm
-statistics are per image, so no collective runs inside the forward.
+statistics are per image, so no collective runs inside the forward, and
+`ShardedStylizer` spreads a batch over devices with none at all.
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from faststyle_tpu_torch.models import vgg16
+from faststyle_tpu_torch import inference
+from faststyle_tpu_torch.models import transform_net, vgg16
+from faststyle_tpu_torch.parallel.mesh import pad_batch_to_devices, serving_devices
 from faststyle_tpu_torch.training.train_step import TrainConfig, TrainState, make_grad_fn, to_device
 
 
@@ -85,3 +90,63 @@ def make_dp_train_step(
         return state, dict(zip(keys, flat[offset:].unbind()))
 
     return dp_step
+
+
+class ShardedStylizer:
+    """Batch-sharded stylization: a batch spread over a list of devices,
+    one process driving them all (counterpart of the JAX package's
+    `ShardedStylizer` over its data mesh).
+
+    One `inference.Stylizer` per distinct device holds the params there. A
+    batch is padded to a multiple of the device count by repeating its last
+    image, split in order into equal shards, one per device entry, and cut
+    back after. Every shard is launched before any result is fetched, so
+    the cards run together. Nothing is exchanged: instance norm is per
+    image.
+
+    `params`: torch tensors in torch layouts, or numpy arrays in the file
+    layouts (`inference.load_params_numpy`). `devices` defaults to every
+    visible card; an entry may repeat (["cpu"] * 4 splits the batch four
+    ways on the CPU). The fast-path flags are `inference.Stylizer`'s, and
+    the output is float32 NHWC unless one is set, then uint8; under
+    `packed_output` the host unpacks it.
+    """
+
+    def __init__(
+        self,
+        params: Mapping,
+        devices: Sequence[str | torch.device] | None = None,
+        upsample_method: str = "resize",
+        compute_dtype: torch.dtype | None = None,
+        *,
+        output_uint8: bool = False,
+        packed_output: bool = False,
+        packed_input: bool = False,
+    ):
+        self.devices = serving_devices(devices)
+        # one replica per distinct device, shared by its repeated entries
+        self._replicas = {
+            d: inference.Stylizer(
+                params=params,
+                upsample_method=upsample_method,
+                compute_dtype=compute_dtype,
+                output_uint8=output_uint8,
+                packed_output=packed_output,
+                packed_input=packed_input,
+                device=d,
+            )
+            for d in dict.fromkeys(self.devices)
+        }
+        self._packed_output = packed_output
+
+    def stylize_batch(self, imgs: np.ndarray) -> np.ndarray:
+        """NHWC RGB [0, 255] float or uint8, any batch size -> stylized NHWC
+        on the host: float32, or uint8 with output_uint8 / packed_*."""
+        imgs = np.asarray(imgs)
+        padded, n = pad_batch_to_devices(imgs, len(self.devices))
+        shards = np.split(padded, len(self.devices))
+        outs = [self._replicas[d].stylize_batch(s) for d, s in zip(self.devices, shards)]
+        out = torch.cat([o.cpu() for o in outs]).numpy()[:n]
+        if self._packed_output:
+            out = inference.unpack_u8_host(out, *transform_net.output_shape(imgs.shape[1], imgs.shape[2]))
+        return out

@@ -6,6 +6,8 @@ data parallelism: every rank holds the whole net, takes its rows of each
 global batch, and the gradients are summed across ranks. One process per
 card, as `torch.distributed.run` starts them; `init_data_parallel` reads
 the rank it was given from the environment, or makes a world of one.
+Serving needs no process group: one process drives a list of devices
+(`serving_devices`).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import os
 import socket
 from dataclasses import dataclass
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -94,6 +96,20 @@ def shard_rows(batches: Iterable[np.ndarray], rank: int, size: int) -> Iterator[
         close = getattr(it, "close", None)
         if close is not None:
             close()
+
+
+def serving_devices(devices: Sequence[str | torch.device] | None = None) -> list[torch.device]:
+    """The device list one serving process drives: `devices` as given (an
+    entry may repeat, e.g. ["cpu"] * 4), or every visible card, cuda:0 to
+    cuda:k-1 (the counterpart of the JAX package's `data_mesh()`); raises
+    when a card is asked for and CUDA is absent."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    out = [resolve_device(d) for d in devices]
+    if not out:
+        raise ValueError("need at least one device")
+    return out
 
 
 def pad_batch_to_devices(batch: np.ndarray, n_devices: int) -> tuple[np.ndarray, int]:

@@ -71,8 +71,27 @@ def test_stylize_image_input_dir_two_sizes(tmp_path, capsys):
 
 
 def test_stylize_image_spatial_is_not_yet_ported(tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported .*parallel/"):
-        stylize_image.main(["--input_img_path", str(tmp_path / "x.png"), "--spatial", "--device", "cpu"])
+    """--spatial is ported now; what it still refuses is --input_dir beside
+    it, with the JAX CLI's text, checked before any image is read."""
+    with pytest.raises(SystemExit, match="--spatial shards ONE image's rows; with --input_dir use the default "
+                                         "batch-sharded mode \\(images spread across chips\\)"):
+        stylize_image.main(["--input_dir", str(tmp_path / "missing"), "--spatial", "--device", "cpu"])
+
+
+def test_stylize_image_spatial_equals_the_plain_cli(tmp_path, capsys):
+    """On one CPU entry --spatial runs 1-way, the single-device forward: its
+    PNG is the plain CLI's within one count."""
+    _image(tmp_path, "in.png", 48, 37)
+    outs = {}
+    for name, extra in (("plain", []), ("spatial", ["--spatial"])):
+        stylize_image.main([
+            "--input_img_path", str(tmp_path / "in.png"), "--output_img_path", str(tmp_path / f"{name}.png"),
+            "--model_path", STARRY, "--device", "cpu", *extra,
+        ])
+        outs[name] = image_io.imread(tmp_path / f"{name}.png")
+    assert "Evaluating (1-way row sharding)..." in capsys.readouterr().out
+    assert outs["spatial"].shape == outs["plain"].shape == (48, 40, 3)
+    assert np.abs(outs["spatial"].astype(int) - outs["plain"].astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("extra", [[], ["--packed_fetch"]], ids=["plain", "packed"])
