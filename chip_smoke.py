@@ -6,11 +6,12 @@
 Phases, each raising on failure (the script then exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit, turns
                TF32 off for matmuls and cuDNN (full float32 everywhere)
-  2. build   — compiles the Gram kernel (nvcc), the host pack library and
-               the TFRecord codec (c++) from faststyle_tpu_torch/csrc, all
-               together, and checks with cuobjdump that the tile kernels run
-               on the tensor cores (HMMA instructions in their SASS)
-  3. kernel  — the kernel against its plain PyTorch version, forward and
+  2. build   — compiles the Gram and weight-gradient kernels (nvcc), the
+               host pack library and the TFRecord codec (c++) from
+               faststyle_tpu_torch/csrc, all together, and checks with
+               cuobjdump that the tile kernels run on the tensor cores (HMMA
+               instructions in their SASS)
+  3. kernel  — the Gram kernel against its plain PyTorch version, forward and
                gradient, at the b4@256 training shapes and the 474x712
                slow-style shapes in float32 and bf16 and at ragged and
                unaligned shapes; float32 against a float64 Gram, well
@@ -19,29 +20,41 @@ Phases, each raising on failure (the script then exits non-zero):
                torch.matmul on the same features, eagerly and on the
                device alone (CUDA graph replays), beside the card's bound
                and the launch plan
-  4. repro   — two f32 b4@256 3-step train runs from one init, in a fresh
-               process under each of: the defaults, cudnn.deterministic,
-               cudnn.benchmark, CUBLAS_WORKSPACE_CONFIG=:4096:8 (bit-equal
-               or not); every convolution of the step run twice, forward
-               and backward (which gradients differ); ms/step with and
-               without cudnn.deterministic in float32 and bfloat16
-  5. slice   — `faststyle_tpu_torch.cli.train` for 6 steps at b4@256, full
+  4. wgrad   — the weight-gradient kernel (conv_wgrad) against float64 at the
+               transform net's 16 b4@256 shapes in float32 (under 2e-5 of
+               max |dW| and half of 1xTF32's error) and bf16 (1e-2) and at
+               ragged shapes; two calls bitwise equal; device-alone times
+               beside cuDNN's default and deterministic weight gradients,
+               the plain version and the bound
+  5. repro   — with no determinism flag set: two default `cli.train` 3-step
+               runs in fresh processes, float32 and bfloat16, bit-equal;
+               every convolution of the f32 and bf16 steps run twice
+               through the port's conv2d (0 may differ); per convolution of the f32 and bf16
+               step, device-alone ms of the forward, cuDNN's default and
+               deterministic data and weight gradients, the data gradient
+               as forward convs and the kernel; ms/step of the default
+  6. slice   — `faststyle_tpu_torch.cli.train` for 6 steps at b4@256, full
                width (random VGG16 weights and synthetic images from a seed),
                with the Gram launch count; one GPU train step against the
                same step on the CPU; steps/s of the train step
-  6. records — `faststyle_tpu_torch.cli.tfrecords_writer` turns 64
+  7. records — `faststyle_tpu_torch.cli.tfrecords_writer` turns 64
                synthetic 640x480 JPEGs, a PNG and a grayscale JPEG into 4
                shards (C++ scan with CRCs against the plain Python reader, a
                flipped byte raises); `cli.train --train_dir` for 6 steps at
                b4@256 with the Gram launch count; `--data_parallel` for 3
-               steps through `torch.distributed.run` (one NCCL rank) against
-               two plain 3-step runs, all three with cudnn.deterministic
-               (the two plain runs bit-equal);
+               steps through `torch.distributed.run` (one NCCL rank)
+               bit-equal to two plain 3-step runs, no flag set;
                `--debug_nans` clean, and a NaN batch
                raising FloatingPointError; the fused content tower against
                the plain step, then both timed in float32 and bfloat16; the
                Batchers' images/s
-  7. serve   — `faststyle_tpu_torch.cli.stylize_image` in float32 against
+  8. distill — `tools.make_training_images` (64 images), then
+               `tools.distill_validation` 100 --layerwise and 100 --gram_w 1
+               --ema_decay 0.999 steps at b4@256 bf16 from starry: the
+               layerwise loss falls, Gram and conv_wgrad launch counts, the
+               saved student served by the Stylizer; one card distill step
+               against the CPU (1e-3); two 20-step runs bit-equal
+  9. serve   — `faststyle_tpu_torch.cli.stylize_image` in float32 against
                the seven TF oracle PNGs (SSIM >= 0.99); uint8 output within
                one count of the CPU Stylizer; bfloat16 against float32
                (SSIM >= 0.98); a TF1 checkpoint written by the port serves
@@ -49,7 +62,7 @@ Phases, each raising on failure (the script then exits non-zero):
                bit-exact with the plain uint8 path at 1080x1920 and 250x243,
                resize and deconv; --input_dir over three images, two sizes
                (ShardedStylizer over every visible card)
-  8. parallel — ShardedStylizer over ["cuda:0"] * 2 against the single-card
+ 10. parallel — ShardedStylizer over ["cuda:0"] * 2 against the single-card
                Stylizer (float32 1e-2, uint8 one count, packed I/O
                bit-exact with its uint8 path); SpatialStylizer over
                ["cuda:0"] * 4 on a 4K frame (4-way) and a 1080p deconv
@@ -58,14 +71,14 @@ Phases, each raising on failure (the script then exits non-zero):
                as readings; `cli.stylize_image --spatial` (1-way) against
                the plain CLI; `parallel.dryrun.run(1)` with its Gram
                launch count
-  9. stream  — `faststyle_tpu_torch.cli.stylize_webcam` on 120 synthetic
+ 11. stream  — `faststyle_tpu_torch.cli.stylize_webcam` on 120 synthetic
                1920x1080 frames in bfloat16 and float32 at pipeline depths 1
                and 2, with --packed_fetch, at 512x512, and through a short
                MJPG video: fps and p50/p99 latency; the forward's device-alone
                ms per frame (CUDA-graph replays)
- 10. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
+ 12. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
                chicago.jpg at its native 474x712 (random VGG16), with the Gram
-               launch count; 5 steps in bfloat16; 3 steps at 256x256 on the
+               launch count, twice (bit-equal); 5 steps in bfloat16; 3 steps at 256x256 on the
                card against the CPU from the same start
 Every check of a phase prints its reading; a phase raises at its end if
 any of its checks failed. Then the `kernels` JSON line, and last the `ok`
@@ -102,8 +115,11 @@ from faststyle_tpu_torch.data import pipeline, tfrecord
 from faststyle_tpu_torch.inference import load_params
 from faststyle_tpu_torch.models import transform_net, vgg16
 from faststyle_tpu_torch.ops import layers
-from faststyle_tpu_torch.ops.cuda import build, gram
+from faststyle_tpu_torch.ops import conv_grad
+from faststyle_tpu_torch.ops.cuda import build, conv_wgrad, gram
 from faststyle_tpu_torch.parallel import data_parallel, dryrun, spatial
+from faststyle_tpu_torch.tools import distill_validation as distill
+from faststyle_tpu_torch.tools import make_training_images
 from faststyle_tpu_torch.training import loop, slow_style, train_step
 from faststyle_tpu_torch.utils import image_io
 from faststyle_tpu_torch.utils.metrics import ssim
@@ -117,7 +133,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 TENSOR_PEAK = {torch.float32: 495e12, torch.bfloat16: 989e12}  # TF32, bf16
 PASSES = {torch.float32: 3, torch.bfloat16: 1}
-FFMA_PEAK = 67e12  # FP32 outside the tensor cores: the bound the first kernel was held to
+FFMA_PEAK = 67e12  # FP32 outside the tensor cores: a second, labelled reading beside the bounds
 TRAIN_SHAPES = [(4, 256, 256, 64), (4, 128, 128, 128), (4, 64, 64, 256), (4, 32, 32, 512)]
 # slow-style's style layers on chicago.jpg at its native 474x712 (SAME
 # pools round up); no row count h*w is a multiple of 32
@@ -133,8 +149,9 @@ CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TR
 ]
 # in both dtypes: split (two launches); one launch, mostly off-diagonal tiles
 DETERMINISM_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[3]]
-# csrc/gram.cu (the kernel); csrc/depth_to_space.cc and csrc/tfrecord_io.cc (host)
-BUILDS = ("gram", "depth_to_space", "tfrecord_io")
+# csrc/gram.cu and csrc/conv_wgrad.cu (the kernels); csrc/depth_to_space.cc and
+# csrc/tfrecord_io.cc (host)
+BUILDS = ("gram", "conv_wgrad", "depth_to_space", "tfrecord_io")
 # forward: float32 sums over hw in another order than cuBLAS -> 1e-4 of the
 # largest entry; gradient: the same matmul formula in f32 (1e-4), and for
 # bf16 one bf16 rounding of each entry after it (2^-8 ~ 4e-3 -> 1e-2)
@@ -172,23 +189,25 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
-    """Builds the Gram kernel (nvcc), the host pack library and the TFRecord
-    codec (c++), every compiler started together."""
+    """Builds the Gram and weight-gradient kernels (nvcc), the host pack
+    library and the TFRecord codec (c++), every compiler started together."""
     phase("build")
     with concurrent.futures.ThreadPoolExecutor(len(BUILDS)) as pool:
         built = dict(zip(BUILDS, pool.map(build.build, BUILDS)))
     gram._lib()  # load and bind
+    conv_wgrad._lib()
     inference._host_lib()
     tfrecord._lib()
     for name, (path, seconds) in built.items():
         print(f"built {path.relative_to(REPO)} in {seconds:.2f} s")
-    tensor_core_check(built["gram"][0])
+    tensor_core_check(built["gram"][0], "gram_")
+    tensor_core_check(built["conv_wgrad"][0], "wgrad_")
 
 
-def tensor_core_check(lib_path: Path) -> None:
-    """Raises unless every Gram tile kernel in the built library has HMMA
-    (tensor-core) instructions in its SASS; prints each kernel's registers
-    and local-memory bytes (spills) from cuobjdump."""
+def tensor_core_check(lib_path: Path, prefix: str) -> None:
+    """Raises unless every tile kernel (`<prefix>tile_kernel`) in the built
+    library has HMMA (tensor-core) instructions in its SASS; prints each
+    kernel's registers and local-memory bytes (spills) from cuobjdump."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     run = lambda flag: subprocess.run([str(tool), flag, str(lib_path)], capture_output=True,
                                       text=True, check=True, timeout=300).stdout
@@ -196,18 +215,18 @@ def tensor_core_check(lib_path: Path) -> None:
     for block in run("-sass").split("Function : ")[1:]:
         name, _, body = block.partition("\n")
         hmma[name.strip()] = len(re.findall(r"\bHMMA\.", body))
-    tiles = {n: k for n, k in hmma.items() if "gram_tile_kernel" in n}
+    tiles = {n: k for n, k in hmma.items() if f"{prefix}tile_kernel" in n}
     name = None  # cuobjdump prints a function's name, then (maybe on the next line) its usage
     for line in run("-res-usage").splitlines():
         if m := re.search(r"Function (\S+):", line):
             name = m.group(1)
-        if (u := re.search(r"REG:(\d+).*?SHARED:(\d+).*?LOCAL:(\d+)", line)) and name and "gram_" in name:
-            print(f"  {name[name.index('gram_'):]}: registers {u[1]}, static shared {u[2]} B, "
+        if (u := re.search(r"REG:(\d+).*?SHARED:(\d+).*?LOCAL:(\d+)", line)) and name and prefix in name:
+            print(f"  {name[name.index(prefix):]}: registers {u[1]}, static shared {u[2]} B, "
                   f"local (spills) {u[3]} B, HMMA {hmma.get(name, 0)}")
             name = None
     if not tiles or min(tiles.values()) == 0:
-        raise AssertionError(f"gram tile kernels without HMMA in their SASS: {tiles}")
-    print(f"tensor cores: {len(tiles)} gram tile kernels, each with HMMA "
+        raise AssertionError(f"{prefix}tile kernels without HMMA in their SASS: {tiles}")
+    print(f"tensor cores: {len(tiles)} {prefix}tile kernels, each with HMMA "
           f"({min(tiles.values())}-{max(tiles.values())} instructions)")
 
 
@@ -384,6 +403,148 @@ def kernel_phase() -> dict:
             "slow_style_device_ms": slow[torch.float32][0]}
 
 
+def transform_wgrads(n: int = 4, size: int = 256) -> list:
+    """(x NHWC shape, (kh, kw), stride, (ph, pw), co) of the transform net's
+    16 weight gradients in a b{n}@{size} train step, as Conv2dFunction gets
+    them: a stride-2 SAME conv on an even extent arrives padded (0, 1)."""
+    h = size + 80
+    out = [((n, h, h, 3), (9, 9), 1, (4, 4), 16)]
+    for ci, co in ((16, 32), (32, 64)):
+        lo, hi = layers._same_pads(h, 3, 2)
+        out.append(((n, h, h, ci), (3, 3), 2, (lo, lo), co) if lo == hi
+                   else ((n, h + lo + hi, h + lo + hi, ci), (3, 3), 2, (0, 0), co))
+        h = -(-h // 2)
+    for _ in range(10):  # five resblocks, two VALID convs each
+        out.append(((n, h, h, 64), (3, 3), 1, (0, 0), 64))
+        h -= 2
+    for ci, co in ((64, 32), (32, 16)):  # the upsample phase convs over x padded by one
+        out.append(((n, h + 1, h + 1, ci), (2, 2), 1, (0, 0), 4 * co))
+        h *= 2
+    out.append(((n, h, h, 16), (9, 9), 1, (4, 4), 3))
+    return out
+
+
+def wgrad_name(i: int) -> str:
+    return ["init_0", "init_1", "init_2"][i] if i < 3 else (
+        f"res{(i - 3) // 2}_{(i - 3) % 2 + 1}" if i < 13 else ["up_0", "up_1", "final"][i - 13])
+
+
+def wgrads_per_step(dtype=torch.float32) -> int:
+    """How many of a train step's 16 weight gradients launch the kernel
+    (conv_grad.wgrad_by_kernel's rule; the rest take cuDNN's deterministic
+    algorithm)."""
+    return sum(conv_grad.wgrad_by_kernel((co, shape[3], *kernel), stride, dtype)
+               for shape, kernel, stride, _, co in transform_wgrads())
+
+
+# ragged: im2col width and co past one tile, odd extents, stride 2 with a symmetric pad
+WGRAD_RAGGED = [((3, 37, 29, 5), (3, 3), 2, (1, 1), 70), ((2, 19, 23, 3), (9, 9), 1, (4, 4), 3)]
+WGRAD_F32_TOL = 2e-5  # of max |dW| against float64: float32 sums over 1e5-5e5 rows in fixed blocks
+WGRAD_BF16_TOL = 1e-2  # of max |dW|: bf16 inputs, f32 sums, against float64 of the same bf16 values
+
+
+def wgrad_bound(shape, kernel, stride, pad, co, dtype) -> tuple[float, float, float]:
+    """(ms to move the bytes, ms to do the operations, ms for the operations
+    at FFMA's peak) of one weight gradient: X and dY read once, dW written
+    once in float32; 2*rows*p*co FLOP in the kernel's tensor-core passes
+    (float32 as 3xTF32, as the Gram's `bound`) at the peak for their type.
+    The third time is a second reading for float32 only: the rate of the
+    FP32 units that the kernel does not use."""
+    n, h, w, ci = shape
+    oh, ow = conv_wgrad.out_size(h, kernel[0], stride, pad[0]), conv_wgrad.out_size(w, kernel[1], stride, pad[1])
+    p = kernel[0] * kernel[1] * ci
+    elem = torch.finfo(dtype).bits // 8
+    nbytes = (n * h * w * ci + n * oh * ow * co) * elem + p * co * 4
+    flops = 2 * n * oh * ow * p * co
+    return (nbytes / HBM_BYTES_PER_S * 1e3, PASSES[dtype] * flops / TENSOR_PEAK[dtype] * 1e3,
+            flops / FFMA_PEAK * 1e3)
+
+
+def cudnn_wgrad(x, dy, w_shape, stride, pad):
+    """cuDNN's weight gradient alone (NCHW views of NHWC tensors)."""
+    w = torch.empty(w_shape, device=x.device, dtype=x.dtype)
+    return torch.ops.aten.convolution_backward(dy, x, w, None, [stride] * 2, list(pad), [1, 1], False, [0, 0], 1,
+                                               [False, True, False])[1]
+
+
+def wgrad_phase() -> dict:
+    """The weight-gradient kernel against its plain version and float64 at
+    the transform net's 16 b4@256 shapes in float32 and bf16 and at ragged
+    ones; two calls bitwise equal; device-alone times beside cuDNN's default
+    and deterministic weight gradients and the bound."""
+    phase("wgrad")
+    check = Checks("wgrad")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    sms = conv_wgrad.num_sms(torch.cuda.current_device())
+    totals = {dt: dict.fromkeys(("kernel", "cudnn", "cudnn_det", "routed", "plain", "bytes", "ops", "ffma_ops"), 0.0)
+              for dt in (torch.float32, torch.bfloat16)}
+    worst = 0.0
+    shapes = [(wgrad_name(i), s) for i, s in enumerate(transform_wgrads())] + [
+        (f"ragged{i}", s) for i, s in enumerate(WGRAD_RAGGED)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (shape, kernel, stride, pad, co) in shapes:
+            n, h, w, ci = shape
+            oh, ow = conv_wgrad.out_size(h, kernel[0], stride, pad[0]), conv_wgrad.out_size(w, kernel[1], stride, pad[1])
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn((n, oh, ow, co), generator=gen, device="cuda").to(dtype)
+            got = conv_wgrad.conv_weight_grad_cuda(x, dy, kernel, stride, pad)
+            ref64 = conv_wgrad.conv_weight_grad_plain(x.double(), dy.double(), kernel, stride, pad)
+            scale = float(ref64.abs().max())
+            err = float((got.double() - ref64).abs().max()) / scale
+            again = conv_wgrad.conv_weight_grad_cuda(x, dy, kernel, stride, pad)
+            same = torch.equal(got, again)
+            dt = str(dtype).removeprefix("torch.")
+            if dtype == torch.float32:
+                plain_err = float((conv_wgrad.conv_weight_grad_plain(x, dy, kernel, stride, pad).double() - ref64)
+                                  .abs().max()) / scale
+                tf32 = lambda t: ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32).double()
+                e1x = float((conv_wgrad.conv_weight_grad_plain(tf32(x), tf32(dy), kernel, stride, pad) - ref64)
+                            .abs().max()) / scale
+                ok = err <= WGRAD_F32_TOL and 2 * err <= e1x
+                note = f"vs float64 {err:.3e} (need <= {WGRAD_F32_TOL} and under half of 1xTF32's {e1x:.3e}; " \
+                       f"the plain float32 product {plain_err:.3e})"
+            else:
+                ok = err <= WGRAD_BF16_TOL
+                note = f"vs float64 of the same bf16 values {err:.3e} (need <= {WGRAD_BF16_TOL})"
+            worst = max(worst, err) if dtype == torch.float32 else worst
+            pl = conv_wgrad.plan(n * oh * ow, kernel[0] * kernel[1] * ci, co,
+                                 (x.numel() + dy.numel()) * x.element_size(), sms)
+            xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            w_shape = (co, ci, *kernel)
+            k_ms = cuda_time_ms(lambda: conv_wgrad.conv_weight_grad_cuda(x, dy, kernel, stride, pad), graph=True)
+            c_ms = cuda_time_ms(lambda: cudnn_wgrad(xn, dyn, w_shape, stride, pad), graph=True)
+            with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+                d_ms = cuda_time_ms(lambda: cudnn_wgrad(xn, dyn, w_shape, stride, pad), graph=True)
+            p_ms = cuda_time_ms(lambda: conv_wgrad.conv_weight_grad_plain(x, dy, kernel, stride, pad), iters=3)
+            t_bytes, t_ops, t_ffma = wgrad_bound(shape, kernel, stride, pad, co, dtype)
+            b_ms = max(t_bytes, t_ops)
+            by_kernel = conv_grad.wgrad_by_kernel(w_shape, stride, dtype)
+            check(ok and same, f"conv_wgrad {name} x {list(shape)} k{kernel[0]}x{kernel[1]} s{stride} p{pad[0]} "
+                               f"co {co} {dt} (the step takes {'the kernel' if by_kernel else 'cuDNN deterministic'})"
+                               f": {note}; two calls bit-equal {same}; device-alone kernel "
+                               f"{k_ms:.5f} ms, cuDNN default {c_ms:.5f}, cuDNN deterministic {d_ms:.5f}, plain "
+                               f"(eager) {p_ms:.5f}, bound {b_ms:.5f} ({'bytes' if t_bytes > t_ops else 'operations'}) "
+                               f"share {b_ms / k_ms:.3f}; plan splits={pl.splits} chunk={pl.chunk} "
+                               f"tile_c={pl.tile_c} blocks={pl.blocks} launches={pl.launches}")
+            if not name.startswith("ragged"):
+                tot = totals[dtype]
+                for key, val in (("kernel", k_ms), ("cudnn", c_ms), ("cudnn_det", d_ms),
+                                 ("routed", k_ms if by_kernel else d_ms), ("plain", p_ms),
+                                 ("bytes", t_bytes), ("ops", t_ops), ("ffma_ops", t_ffma)):
+                    tot[key] += val
+            del x, dy, got, again, ref64
+    for dtype, tot in totals.items():
+        tot["bound"] = max(tot["bytes"], tot["ops"])
+        print(f"conv_wgrad, the transform net's 16 weight gradients of one b4@256 step, "
+              f"{str(dtype).removeprefix('torch.')}: " + " ".join(f"{k}_ms={v:.5f}" for k, v in tot.items()), flush=True)
+    check.done()
+    f32 = totals[torch.float32]
+    return {"max_abs_err": worst, "ms": f32["kernel"], "plain_ms": f32["plain"], "bound_ms": f32["bound"],
+            "bound_by": "bytes" if f32["bytes"] > f32["ops"] else "operations", "library_ms": f32["cudnn"],
+            "library_deterministic_ms": f32["cudnn_det"], "bfloat16_ms": totals[torch.bfloat16]["kernel"],
+            "ffma_bound_ms": f32["ffma_ops"]}
+
+
 def write_inputs(root: Path) -> tuple[Path, Path]:
     """A random VGG16 in Frossard keys (He-scaled, so activations stay in
     range) and 8 synthetic 256x256 images, all from one numpy seed."""
@@ -418,7 +579,7 @@ def slice_phase() -> dict:
         os.chdir(root)  # the CLI writes training/, models/, summaries/ here
         try:
             torch.cuda.reset_peak_memory_stats()
-            gram.GramFunction.launches = 0
+            gram.GramFunction.launches = conv_wgrad.launches = 0
             t0 = time.perf_counter()
             state = cli_train.main([
                 "--image_dir", str(img_dir), "--vgg_path", str(vgg_path),
@@ -429,6 +590,7 @@ def slice_phase() -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = gram.GramFunction.launches
+            wgrad_launches = conv_wgrad.launches
         finally:
             os.chdir(cwd)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -440,6 +602,10 @@ def slice_phase() -> dict:
         print(f"gram launches on the main path: {launches} (need >= {want})")
         if launches < want:
             raise AssertionError(f"gram kernel launched {launches} times, expected >= {want}")
+        want_w = wgrads_per_step() * steps
+        print(f"conv_wgrad launches on the main path: {wgrad_launches} (need >= {want_w})")
+        if wgrad_launches < want_w:
+            raise AssertionError(f"conv_wgrad kernel launched {wgrad_launches} times, expected >= {want_w}")
         ckpt = root / "training" / "model"
         for s in (3, 6):
             if not (ckpt / f"step_{s}" / "state.npz").exists():
@@ -465,7 +631,7 @@ def slice_phase() -> dict:
         vgg_gpu = vgg16.load_npz(vgg_path, device="cuda")
         reference_check(vgg_path, vgg_gpu)
         rates = {dt: steps_per_sec(vgg_gpu, dt) for dt in (None, torch.bfloat16)}
-    return {"launches": launches, "steps_per_sec": rates}
+    return {"launches": launches, "wgrad_launches": wgrad_launches, "steps_per_sec": rates}
 
 
 def reference_check(vgg_path: Path, vgg_gpu) -> None:
@@ -520,53 +686,14 @@ def steps_per_sec(vgg_gpu, compute_dtype, iters: int = 10, fused: bool = False) 
     return rate
 
 REPRO_STEPS = 3
+REPRO_TIMED = 2  # steps_per_sec calls per dtype
 STYLE_LAYERS = ("conv1_2", "conv2_2", "conv3_3", "conv4_3")
-# cuBLAS's workspace setting for bitwise-reproducible products (the Gram's
-# backward is a matmul); read once, when the process makes its first handle
-CUBLAS_DETERMINISTIC = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-# (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-# environment) of each setting that two f32 3-step runs are held under, one
-# fresh process each, so the cuBLAS setting precedes the first handle
-REPRO_SETTINGS = {
-    "default": (False, False, {}),
-    "cudnn.deterministic": (True, False, {}),
-    "cudnn.benchmark": (False, True, {}),
-    "CUBLAS_WORKSPACE_CONFIG=:4096:8": (False, False, CUBLAS_DETERMINISTIC),
-}
-REPRO_TIMED = 4  # steps_per_sec calls per setting and dtype, in turns
-
-
-def repro_worker(setting: str) -> None:
-    """Two f32 b4@256 runs of REPRO_STEPS train steps from one init on the
-    same batches under `setting`; prints one JSON line with their largest
-    difference."""
-    det, bench, _ = REPRO_SETTINGS[setting]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = det
-    torch.backends.cudnn.benchmark = bench
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_repro_") as tmp:
-        vgg = vgg16.load_npz(write_inputs(Path(tmp))[0], device="cuda")
-    rng = np.random.default_rng(SEED + 4)
-    style = rng.uniform(0, 255, (1, 256, 256, 3)).astype(np.float32)
-    batches = rng.uniform(0, 255, (REPRO_STEPS, 4, 256, 256, 3)).astype(np.float32)
-    config = train_step.TrainConfig.make()
-    grams = slow_style.style_target_grams(vgg, style, STYLE_LAYERS)
-    runs = []
-    for _ in range(2):
-        state = train_step.init_state(config, seed=SEED, device="cuda")
-        step = train_step.make_train_step(vgg, grams, config)
-        for batch in batches:
-            state, _ = step(state, batch)
-        runs.append(torch.cat([p.detach().flatten() for p in state.net.parameters()]))
-    d = (runs[0] - runs[1]).abs()
-    print(json.dumps({"setting": setting, "equal": bool(torch.equal(runs[0], runs[1])), "max_diff": float(d.max()),
-                      "share": float((d > 1e-5).float().mean())}))
 
 
 class ConvRecorder(torch.overrides.TorchFunctionMode):
-    """Records the (input shape, input strides, weight shape, stride,
-    padding, dtype) of every distinct conv2d call under it."""
+    """Records every distinct conv2d call under it: (input shape, input
+    strides, weight shape, stride, padding, dtype) -> (stride, padding,
+    whether the input's gradient is needed, whether the weight's is)."""
 
     def __init__(self):
         super().__init__()
@@ -578,82 +705,149 @@ class ConvRecorder(torch.overrides.TorchFunctionMode):
             x, w = args[0], args[1]
             stride = kwargs.get("stride", args[3] if len(args) > 3 else 1)
             padding = kwargs.get("padding", args[4] if len(args) > 4 else 0)
-            key = (tuple(x.shape), tuple(x.stride()), tuple(w.shape), str(stride), str(padding), x.dtype)
-            self.calls[key] = (stride, padding)
+            stride = stride if isinstance(stride, int) else stride[0]
+            padding = tuple(padding) if isinstance(padding, (tuple, list)) else (padding, padding)
+            key = (tuple(x.shape), tuple(x.stride()), tuple(w.shape), stride, padding, x.dtype)
+            _, _, nx, nw = self.calls.get(key, (0, 0, False, False))
+            self.calls[key] = (stride, padding, nx or x.requires_grad, nw or w.requires_grad)
         return func(*args, **kwargs)
 
 
-def conv_repro(vgg) -> list:
-    """Every distinct convolution of one f32 b4@256 train step, run forward
-    and backward twice on the same random input, weight and output
-    gradient with cudnn.deterministic off: the ones whose input or weight
-    gradient differs between the two runs."""
-    config = train_step.TrainConfig.make()
+def step_convs(vgg, compute_dtype) -> dict:
+    """Every distinct convolution of one b4@256 train step (ConvRecorder's calls)."""
+    config = train_step.TrainConfig.make(compute_dtype=compute_dtype)
     grams = slow_style.style_target_grams(vgg, torch.rand(1, 256, 256, 3, device="cuda") * 255, STYLE_LAYERS)
     state = train_step.init_state(config, seed=SEED, device="cuda")
     rec = ConvRecorder()
     with rec:
         train_step.make_train_step(vgg, grams, config)(state, torch.rand(4, 256, 256, 3, device="cuda") * 255)
+    return rec.calls
+
+
+def conv_operands(key, gen):
+    """Random x (with the recorded strides), w and a channels_last dY for a recorded conv."""
+    shape, strides, wshape, stride, padding, dtype = key
+    x = torch.empty_strided(shape, strides, device="cuda", dtype=dtype).normal_(generator=gen)
+    w = torch.randn(wshape, generator=gen, device="cuda", dtype=dtype)
+    y = torch.nn.functional.conv2d(x, w, stride=stride, padding=padding)
+    dy = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype).to(memory_format=torch.channels_last)
+    return x, w, dy
+
+
+def conv_repro(calls) -> list:
+    """Every recorded convolution run forward and backward twice through the
+    port's conv2d (Conv2dFunction) on the same random input, weight and
+    output gradient, both gradients asked for: the ones whose gradients
+    differ between the two runs."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     found = []
-    for (shape, strides, wshape, _, _, dtype), (stride, padding) in rec.calls.items():
-        x0 = torch.empty_strided(shape, strides, device="cuda", dtype=dtype).normal_(generator=gen)
-        w0 = torch.randn(wshape, generator=gen, device="cuda", dtype=dtype)
+    for key, (stride, padding, _, _) in calls.items():
+        x0, w0, gy = conv_operands(key, gen)
         grads = []
         for _ in range(2):
             x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
-            y = torch.nn.functional.conv2d(x, w, stride=stride, padding=padding)
-            if not grads:
-                gy = torch.randn(y.shape, generator=gen, device="cuda", dtype=dtype)
-                gy = gy.to(memory_format=torch.channels_last)
-            y.backward(gy)
+            conv_grad.conv2d(x, w, None, stride, padding).backward(gy)
             grads.append((x.grad, w.grad))
         dx = float((grads[0][0] - grads[1][0]).abs().max())
         dw = float((grads[0][1] - grads[1][1]).abs().max())
-        line = f"input {list(shape)} weight {list(wshape)} stride {stride}: input grad {dx:.3e}, weight grad {dw:.3e}"
+        line = f"input {list(key[0])} weight {list(key[2])} stride {stride}: input grad {dx:.3e}, weight grad {dw:.3e}"
         print(("  differs " if dx or dw else "  equal   ") + line, flush=True)
         if dx or dw:
             found.append(line)
     return found
 
 
+def grad_table(calls, name: str) -> dict:
+    """Device-alone ms of each recorded convolution: the forward; cuDNN's
+    default data and weight gradients (aten.convolution_backward, one at a
+    time); the same under cudnn deterministic; the data gradient as forward
+    convs (conv_grad.input_grad) and the weight-gradient kernel. Totals over
+    the gradients the step needs (`need`: x, w); the port's total takes each
+    weight gradient by conv_grad.wgrad_by_kernel's rule, and bf16 data
+    gradients from cuDNN's deterministic algorithm, as Conv2dFunction does."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cols = ("fwd", "dgrad", "wgrad", "dgrad_det", "wgrad_det", "dgrad_fwdconv", "wgrad_kernel")
+    tot = dict.fromkeys(("fwd", "cudnn_default", "cudnn_deterministic", "port"), 0.0)
+    print(f"  {name}: device-alone ms per convolution ({', '.join(cols)}); need: input grad, weight grad")
+    for key, (stride, padding, need_x, need_w) in calls.items():
+        x, w, dy = conv_operands(key, gen)
+
+        def bwd(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                dy, x, w, None, [stride] * 2, list(padding), [1, 1], False, [0, 0], 1, mask)
+
+        t = {"fwd": cuda_time_ms(lambda: torch.nn.functional.conv2d(x, w, None, stride, padding), graph=True),
+             "dgrad": cuda_time_ms(bwd([True, False, False]), graph=True),
+             "wgrad": cuda_time_ms(bwd([False, True, False]), graph=True)}
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
+            t["dgrad_det"] = cuda_time_ms(bwd([True, False, False]), graph=True)
+            t["wgrad_det"] = cuda_time_ms(bwd([False, True, False]), graph=True)
+        t["dgrad_fwdconv"] = cuda_time_ms(lambda: conv_grad.input_grad(dy, w, stride, padding, tuple(x.shape[2:])),
+                                          graph=True)
+        xh, dyh = x.permute(0, 2, 3, 1), dy.permute(0, 2, 3, 1)
+        t["wgrad_kernel"] = cuda_time_ms(
+            lambda: conv_wgrad.conv_weight_grad_cuda(xh, dyh, tuple(w.shape[2:]), stride, padding), graph=True)
+        tot["fwd"] += t["fwd"]
+        tot["cudnn_default"] += need_x * t["dgrad"] + need_w * t["wgrad"]
+        tot["cudnn_deterministic"] += need_x * t["dgrad_det"] + need_w * t["wgrad_det"]
+        by_kernel = conv_grad.wgrad_by_kernel(key[2], stride, key[5])
+        dgrad_port = t["dgrad_det"] if key[5] == torch.bfloat16 else t["dgrad_fwdconv"]
+        tot["port"] += need_x * dgrad_port + need_w * (t["wgrad_kernel"] if by_kernel else t["wgrad_det"])
+        print(f"    x {list(key[0])} w {list(key[2])} s{stride} p{padding[0]},{padding[1]} need {int(need_x)}{int(need_w)}: "
+              + " ".join(f"{t[c]:.5f}" for c in cols), flush=True)
+        del x, w, dy
+    print(f"  {name} totals over the needed gradients: " + " ".join(f"{k}_ms={v:.5f}" for k, v in tot.items()),
+          flush=True)
+    return tot
+
+
+def cli_train_subprocess(root: Path, tag: str, img_dir: Path, vgg_path: Path, steps: int, *extra) -> Path:
+    """`python -m faststyle_tpu_torch.cli.train` at b4@256 in a fresh process,
+    from root/tag; returns its final npz."""
+    run = root / tag
+    run.mkdir()
+    port_subprocess(["-m", "faststyle_tpu_torch.cli.train", "--image_dir", str(img_dir), "--vgg_path", str(vgg_path),
+                     "--style_img_path", str(REPO / "style_images" / "starry_night_crop.jpg"),
+                     "--batch_size", "4", "--preprocess_size", "256", "256", "--num_steps_break", str(steps),
+                     "--num_pipe_buffer", "8", *extra], run, timeout=300)
+    return run / "models" / "model_final.npz"
+
+
 def repro_phase() -> dict:
-    """Which setting makes two f32 b4@256 3-step runs bit-equal, which
-    convolutions differ between runs by default, and what the setting costs
-    per f32 and bf16 step (steps/s in turns: off, on, on, off)."""
+    """The train step is bit-reproducible with no flag set: two default
+    cli.train runs in fresh processes, float32 and bfloat16; every
+    convolution of the step run twice through the port's conv2d; the
+    per-convolution gradient table; ms/step of the default."""
     phase("repro")
     check = Checks("repro")
-    results = {}
-    for setting, (_, _, env) in REPRO_SETTINGS.items():
-        proc = port_subprocess([str(REPO / "chip_smoke.py"), "--repro-worker", setting], REPO, timeout=300,
-                               env_extra=env)
-        r = json.loads(proc.stdout.strip().splitlines()[-1])
-        results[setting] = r
-        print(f"two f32 b4@256 {REPRO_STEPS}-step runs, {setting}: bit-equal {r['equal']}, max diff "
-              f"{r['max_diff']:.3e}, {r['share']:.3%} of entries beyond 1e-5", flush=True)
-    check(results["cudnn.deterministic"]["equal"], "cudnn.deterministic makes two runs bit-equal")
+    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark,
+          f"no determinism flag set: cudnn.deterministic={torch.backends.cudnn.deterministic}, "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_repro_") as tmp:
-        vgg = vgg16.load_npz(write_inputs(Path(tmp))[0], device="cuda")
-    saved = torch.backends.cudnn.deterministic
-    try:
-        torch.backends.cudnn.deterministic = False
-        differs = conv_repro(vgg)
-        print(f"convolutions whose gradients differ between two runs (cudnn.deterministic off): {len(differs)}")
-        timing = {}
-        for dtype in (None, torch.bfloat16):
-            name = "bfloat16" if dtype else "float32"
-            timing[name] = {False: [], True: []}
-            for det in [False, True, True, False] * (REPRO_TIMED // 2):
-                torch.backends.cudnn.deterministic = det
-                print(f"  cudnn.deterministic={det}: ", end="")
-                timing[name][det].append(1e3 / steps_per_sec(vgg, dtype))
-            off, on = (float(np.median(timing[name][d])) for d in (False, True))
-            print(f"{name} ms/step, median of {REPRO_TIMED}: default {off:.3f}, cudnn.deterministic {on:.3f} "
-                  f"({on / off - 1:+.2%})", flush=True)
-    finally:
-        torch.backends.cudnn.deterministic = saved
+        root = Path(tmp)
+        vgg_path, img_dir = write_inputs(root)
+        for precision in ("float32", "bfloat16"):
+            runs = [cli_train_subprocess(root, f"{precision}_{i}", img_dir, vgg_path, REPRO_STEPS,
+                                         "--precision", precision) for i in range(2)]
+            diff, share = params_diff(*runs)
+            check(diff == 0.0, f"two default cli.train runs, {REPRO_STEPS} steps at b4@256 {precision}, fresh "
+                               f"processes, no flag set: params max diff {diff:.3e} ({share:.3%} beyond 1e-5; "
+                               f"need 0: bit-equal)")
+        vgg = vgg16.load_npz(vgg_path, device="cuda")
+    calls = {name: step_convs(vgg, dt) for name, dt in (("float32", None), ("bfloat16", torch.bfloat16))}
+    differs = conv_repro(calls["float32"]) + conv_repro(calls["bfloat16"])
+    check(not differs, f"convolutions of the f32 and bf16 steps whose gradients differ between two runs through "
+                       f"the port's conv2d: {len(differs)} of {sum(map(len, calls.values()))} (need 0)")
+    table = {name: grad_table(c, name) for name, c in calls.items()}
+    conv_wgrad.relayouts = 0
+    timing = {}
+    for dtype in (None, torch.bfloat16):
+        name = "bfloat16" if dtype else "float32"
+        timing[name] = [1e3 / steps_per_sec(vgg, dtype) for _ in range(REPRO_TIMED)]
+        print(f"{name} ms/step of the default: {timing[name]}", flush=True)
+    print(f"inputs the weight-gradient kernel copied to NHWC over those steps: {conv_wgrad.relayouts}", flush=True)
     check.done()
-    return {"settings": results, "differs": differs, "ms": timing}
+    return {"differs": differs, "ms": timing, "table": table}
 
 
 RECORD_PHOTOS = 64  # synthetic 640x480 JPEGs, COCO's usual size, plus one PNG and one grayscale JPEG
@@ -683,31 +877,10 @@ def write_photos(root: Path) -> Path:
     return d
 
 
-# cli.train with cudnn.deterministic, for torch.distributed.run to start
-DETERMINISTIC_TRAIN = """import runpy
-import torch
-torch.backends.cudnn.deterministic = True
-runpy.run_module("faststyle_tpu_torch.cli.train", run_name="__main__", alter_sys=True)
-"""
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cudnn.deterministic in this process until the block ends: the one
-    setting that makes the train step bit-reproducible (phase repro)."""
-    saved = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = saved
-
-
-def port_subprocess(args: list, cwd: Path, timeout: int, env_extra: dict | None = None) -> subprocess.CompletedProcess:
+def port_subprocess(args: list, cwd: Path, timeout: int) -> subprocess.CompletedProcess:
     """`python <args>` with the repo importable, from `cwd`; raises with
     the tail of its output if it fails."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")])))
-    env.update(env_extra or {})
     env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: NCCL's bootstrap stays on the loopback
     proc = subprocess.run([sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True,
                           timeout=timeout)
@@ -799,13 +972,15 @@ def records_phase() -> dict:
         check(err is not None and "corrupt" in err, f"one flipped byte in a shard: {err}")
 
         # 2. training from the shards: the main path, with the kernel's count
-        gram.GramFunction.launches = 0
+        gram.GramFunction.launches = conv_wgrad.launches = 0
         state, wall = train_cli(root / "run6", records, vgg_path, RECORD_STEPS)
-        launches = gram.GramFunction.launches
+        launches, wgrad_launches = gram.GramFunction.launches, conv_wgrad.launches
         want = 4 * RECORD_STEPS + 4  # four style layers per step, plus the target Grams once
-        check(state.step == RECORD_STEPS and launches >= want,
+        want_w = wgrads_per_step() * RECORD_STEPS
+        check(state.step == RECORD_STEPS and launches >= want and wgrad_launches >= want_w,
               f"cli.train --train_dir: {state.step} steps at b4@256 float32 in {wall:.3f} s wall (pipeline, targets, "
-              f"checkpoints, final save); gram launches {launches} (need >= {want})")
+              f"checkpoints, final save); gram launches {launches} (need >= {want}), conv_wgrad launches "
+              f"{wgrad_launches} (need >= {want_w})")
         run6 = root / "run6"
         ckpts = [(run6 / "training" / "model" / f"step_{s}" / "state.npz").exists() for s in (3, 6)]
         rows = metric_rows(run6)
@@ -815,36 +990,30 @@ def records_phase() -> dict:
               and all(math.isfinite(v) for p in parts for v in p.values()),
               f"checkpoints at 3 and 6: {ckpts}; final npz; loss parts {parts}; steps/s between the checkpoints {rate}")
 
-        # 3. --data_parallel through torch.distributed.run, against plain
-        # runs, all three with cudnn.deterministic: the plain step alone is
-        # not bitwise reproducible on the card (phase repro), which would
-        # hide what the data-parallel path changes; two plain runs show it
-        with deterministic_cudnn():
-            train_cli(root / "plain3", records, vgg_path, DP_STEPS)
-            train_cli(root / "plain3b", records, vgg_path, DP_STEPS)
+        # 3. --data_parallel through torch.distributed.run, against two
+        # plain runs, no flag set: the step is bit-reproducible (phase
+        # repro), and one rank's all-reduce(SUM) leaves its gradients as
+        # they are, so the DP run must give the same bits
+        train_cli(root / "plain3", records, vgg_path, DP_STEPS)
+        train_cli(root / "plain3b", records, vgg_path, DP_STEPS)
         floor = params_diff(root / "plain3" / "models" / "model_final.npz",
                             root / "plain3b" / "models" / "model_final.npz")
-        check(floor[0] == 0.0, f"two plain cli.train runs, {DP_STEPS} steps at b4@256 float32, same flags, "
-                               f"cudnn.deterministic: params max diff {floor[0]:.3e} (need 0: bit-equal)")
+        check(floor[0] == 0.0, f"two plain cli.train runs, {DP_STEPS} steps at b4@256 float32, same flags, no "
+                               f"determinism flag: params max diff {floor[0]:.3e} (need 0: bit-equal)")
         (root / "dp3").mkdir()
-        launcher = root / "deterministic_train.py"
-        launcher.write_text(DETERMINISTIC_TRAIN)
         t0 = time.perf_counter()
         proc = port_subprocess(["-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
-                                str(launcher), *records_args(records, vgg_path, DP_STEPS), "--data_parallel"],
-                               root / "dp3", timeout=600)
+                                "-m", "faststyle_tpu_torch.cli.train", *records_args(records, vgg_path, DP_STEPS),
+                                "--data_parallel"], root / "dp3", timeout=600)
         wall = time.perf_counter() - t0
         diff, share = params_diff(root / "plain3" / "models" / "model_final.npz",
                                   root / "dp3" / "models" / "model_final.npz")
-        lr = train_step.TrainConfig.make().learn_rate
         plain_loss, dp_loss = (metric_rows(root / run)[-1] for run in ("plain3", "dp3"))
-        rel = max(abs(float(dp_loss[k]) - float(plain_loss[k])) / max(abs(float(plain_loss[k])), 1e-30)
-                  for k in LOSS_PARTS)
-        check(diff <= 2.001 * lr and share <= 0.01 and rel <= 1e-3 and "final weights" in proc.stdout,
+        same_loss = all(float(dp_loss[k]) == float(plain_loss[k]) for k in LOSS_PARTS)
+        check(diff == 0.0 and same_loss and "final weights" in proc.stdout,
               f"--data_parallel, one NCCL rank through torch.distributed.run, {DP_STEPS} steps in {wall:.3f} s wall "
-              f"(process start included), cudnn.deterministic: loss parts at step {DP_STEPS} within {rel:.2e} relative of the plain "
-              f"run's (need <= 1e-3); params max diff {diff:.3e} (need <= {2 * lr}), {share:.3%} of entries beyond "
-              f"1e-5 (need <= 1%)")
+              f"(process start included), no determinism flag: loss parts at step {DP_STEPS} equal to the plain "
+              f"run's: {same_loss}; params max diff {diff:.3e} ({share:.3%} beyond 1e-5; need 0: bit-equal)")
 
         # 4. NaN checking
         state, wall = train_cli(root / "nans2", records, vgg_path, 2, "--debug_nans")
@@ -877,7 +1046,7 @@ def records_phase() -> dict:
                                                                  num_decode_threads=8)),
         }
     check.done()
-    return {"launches": launches, "fused_ms": timing, "input_rates": input_rates}
+    return {"launches": launches, "wgrad_launches": wgrad_launches, "fused_ms": timing, "input_rates": input_rates}
 
 
 def fused_check(check: "Checks", vgg_gpu) -> None:
@@ -1136,6 +1305,12 @@ def slow_style_phase() -> dict:
         check(launches >= want, f"gram launches on the slow-style path: {launches} (need >= {want})")
         check(all(math.isfinite(v) for v in losses) and len(losses) >= 2 and losses[-1] < losses[0],
               f"slow-style losses finite and falling: {losses}")
+        again, history2 = cli_slow.main(base + ["--cont_img_path", str(ASSETS / "chicago.jpg"),
+                                                "--num_steps_break", str(SLOW_STEPS)])
+        n = int((np.asarray(again) != np.asarray(out)).sum()) if np.shape(again) == np.shape(out) else -1
+        check(n == 0 and history2 == history,
+              f"two {SLOW_STEPS}-step slow-style runs: {n} output values differ, losses equal {history2 == history} "
+              "(need bit-equal)")
 
         out, history = cli_slow.main(base + ["--cont_img_path", str(ASSETS / "chicago.jpg"),
                                              "--num_steps_break", "5", "--precision", "bfloat16"])
@@ -1158,6 +1333,103 @@ def slow_style_phase() -> dict:
                                                   f"cuda {logs['cuda']} cpu {logs['cpu']}, relative {rel} (need <= 1e-3)")
     check.done()
     return {"launches": launches}
+
+
+DISTILL_IMAGES = 64
+DISTILL_STEPS = 100  # per phase: --layerwise, then --gram_w 1 --ema_decay 0.999
+DISTILL_REPRO_STEPS = 20
+DISTILL_TAPS = 11  # the transform net's taps, each Gram'd for the student and the teacher per fine-tune step
+
+
+def distill_cli(root: Path, imgs: Path, tag: str, steps: int, *extra) -> dict:
+    """tools.distill_validation at b4@256 bfloat16 from starry, its output under root."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = distill.main(["--image_dir", str(imgs), "--teacher", str(STARRY), "--out", str(root / f"{tag}.npz"),
+                            "--steps", str(steps), *extra])
+    lines = buf.getvalue().splitlines()
+    print("\n".join(f"  [{tag}] {line}" for line in lines[:2] + lines[-5:]), flush=True)
+    return res
+
+
+def distill_reference_check(check: Checks) -> None:
+    """One make_distill_step (feature_w 1, gram_w 1, EMA 0.99) at b2@64
+    float32 on the card against the same step on the CPU, from the same
+    student and teacher: losses within 1e-3 relative, params within 2 * lr
+    and all but 1% within 1e-5."""
+    teacher = inference.load_params_numpy(STARRY)
+    batch = np.random.default_rng(SEED + 9).uniform(0, 255, (2, 64, 64, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        step, opt = distill.make_distill_step(1e-3, None, decay_steps=10, feature_w=1.0, gram_w=1.0, ema_decay=0.99)
+        net = transform_net.TransformNet(transform_net.init_params(torch.Generator().manual_seed(SEED), device=dev))
+        ema = {b: {v: t.detach().clone() for v, t in sub.items()} for b, sub in net.params().items()}
+        opt_state = opt.init(net)
+        net, ema, _, (loss, pix) = step(net, ema, opt_state, inference.load_params(STARRY, device=dev),
+                                        torch.from_numpy(batch).to(dev))
+        out[dev] = ((float(loss), float(pix)), torch.cat([p.detach().cpu().flatten() for p in net.parameters()]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    d = (out["cuda"][1] - out["cpu"][1]).abs()
+    diff, share = float(d.max()), float((d > 1e-5).float().mean())
+    check(rel <= 1e-3 and diff <= 2.001e-3 and share <= 0.01,
+          f"one b2@64 float32 distill step (gram_w 1, EMA), card vs CPU: loss and pixel L2 {out['cuda'][0]} vs "
+          f"{out['cpu'][0]}, relative {rel:.2e} (need <= 1e-3); params max diff {diff:.3e} (need <= 2e-3), "
+          f"{share:.3%} beyond 1e-5 (need <= 1%)")
+    del teacher
+
+
+def distill_phase() -> dict:
+    """The distillation trainer on the card: a corpus of DISTILL_IMAGES,
+    DISTILL_STEPS --layerwise then DISTILL_STEPS --gram_w 1 --ema_decay
+    0.999 steps at b4@256 bf16 from starry (the main path, launch counts);
+    the saved student served by the Stylizer; a card step against the CPU;
+    two DISTILL_REPRO_STEPS-step runs bit-equal."""
+    phase("distill")
+    check = Checks("distill")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_distill_") as tmp:
+        root = Path(tmp)
+        with contextlib.redirect_stdout(io.StringIO()):
+            imgs = make_training_images.main([str(root / "imgs"), "--num", str(DISTILL_IMAGES)])
+        runs, launches = {}, {}
+        for tag, extra in (("layerwise", ["--layerwise", "--learn_rate", "1e-3"]),
+                           ("finetune", ["--init_from", str(root / "layerwise.npz"), "--learn_rate", "3e-4",
+                                         "--gram_w", "1", "--ema_decay", "0.999"])):
+            gram.GramFunction.launches = conv_wgrad.launches = 0
+            runs[tag] = distill_cli(root, imgs, tag, DISTILL_STEPS, *extra)
+            torch.cuda.synchronize()
+            launches[tag] = (gram.GramFunction.launches, conv_wgrad.launches)
+            rows = runs[tag]["rows"]
+            want_g = 2 * DISTILL_TAPS * DISTILL_STEPS if tag == "finetune" else 0
+            want_w = wgrads_per_step(torch.bfloat16) * DISTILL_STEPS
+            # the fine-tune's Gram term first raises its loss (the full recipe's
+            # second phase: 0.0048 at step 1, 0.045 at step 200, 0.0027 at 8000)
+            check((tag == "finetune" or rows[-1][1] < rows[0][1]) and all(math.isfinite(r[1]) for r in rows)
+                  and launches[tag][0] >= want_g and launches[tag][1] == want_w,
+                  f"distill {tag}, {DISTILL_STEPS} steps at b4@256 bfloat16: loss {rows[0][1]:.5f} at step "
+                  f"{rows[0][0]} -> {rows[-1][1]:.5f} at step {rows[-1][0]} (need finite, and falling in the "
+                  f"layerwise phase); "
+                  f"{runs[tag]['steps_per_sec']:.3f} steps/s ({runs[tag]['wall_s']:.2f} s); gram launches "
+                  f"{launches[tag][0]} (need >= {want_g}), conv_wgrad launches {launches[tag][1]} "
+                  f"(need {want_w}: bf16 takes cuDNN's deterministic algorithm); held-out SSIM {runs[tag]['ssim']}")
+        student = root / "finetune.npz"
+        crop = image_io.imread(ASSETS / "chicago_crop256.png")
+        served = inference.Stylizer(student)(crop)
+        teacher_out = inference.Stylizer(STARRY)(crop)
+        score = ssim(served, teacher_out)
+        check(served.shape == crop.shape and served.dtype == np.uint8,
+              f"the saved student served by the Stylizer on chicago_crop256: {served.shape} {served.dtype}, SSIM "
+              f"against the teacher {score:.4f} (a reading after {2 * DISTILL_STEPS} steps)")
+        distill_reference_check(check)
+        repro = [distill_cli(root, imgs, f"repro{i}", DISTILL_REPRO_STEPS, "--init_from",
+                             str(root / "layerwise.npz"), "--learn_rate", "3e-4", "--gram_w", "1",
+                             "--ema_decay", "0.999")["out"] for i in range(2)]
+        diff, share = params_diff(*repro)
+        check(diff == 0.0, f"two distill runs, {DISTILL_REPRO_STEPS} steps --gram_w 1 --ema_decay 0.999 at b4@256 "
+                           f"bfloat16: params max diff {diff:.3e} ({share:.3%} beyond 1e-5; need 0: bit-equal)")
+    check.done()
+    return {"gram_launches": sum(g for g, _ in launches.values()),
+            "wgrad_launches": sum(w for _, w in launches.values()),
+            "steps_per_sec": {k: r["steps_per_sec"] for k, r in runs.items()}}
 
 
 SHARDED_FRAMES = 5  # over two entries: padded to 6, shards of 3
@@ -1309,42 +1581,45 @@ def parallel_phase(smi: str) -> dict:
     # main path's Gram launches here (over every card when there are more)
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: NCCL's bootstrap stays on the loopback
     buf = io.StringIO()
-    gram.GramFunction.launches = 0
+    gram.GramFunction.launches = conv_wgrad.launches = 0
     with contextlib.redirect_stdout(buf):
         dryrun.run(len(cards))
     torch.cuda.synchronize()
-    launches = gram.GramFunction.launches
+    launches, wgrad_launches = gram.GramFunction.launches, conv_wgrad.launches
     print(buf.getvalue(), end="")
     want = 4 + 4  # the target Grams, then the step's four style layers
-    check(f"[dryrun] {len(cards)}-device cuda list OK" in buf.getvalue() and launches >= want,
-          f"parallel.dryrun.run({len(cards)}): gram launches {launches} (need >= {want})")
+    check(f"[dryrun] {len(cards)}-device cuda list OK" in buf.getvalue() and launches >= want
+          and wgrad_launches >= wgrads_per_step(),
+          f"parallel.dryrun.run({len(cards)}): gram launches {launches} (need >= {want}), conv_wgrad launches "
+          f"{wgrad_launches} (need >= {wgrads_per_step()})")
     check.done()
-    return {"launches": launches, "spatial_ms": readings}
+    return {"launches": launches, "wgrad_launches": wgrad_launches, "spatial_ms": readings}
 
 
 def main(argv: list) -> None:
     """Every phase in order, then the kernels and ok lines."""
-    if argv[:1] == ["--repro-worker"]:
-        repro_worker(argv[1])
-        return
     smi = device_phase()
     build_phase()
     k = kernel_phase()
+    w = wgrad_phase()
     repro_phase()
     s = slice_phase()
     r = records_phase()
+    d = distill_phase()
     serve_phase()
     p = parallel_phase(smi)
     stream_phase()
     ss = slow_style_phase()
     print(f"gram launches: {s['launches']} on the train slice, {r['launches']} training from TFRecords, "
-          f"{p['launches']} in parallel.dryrun, {ss['launches']} on slow-style")
+          f"{d['gram_launches']} distilling, {p['launches']} in parallel.dryrun, {ss['launches']} on slow-style")
+    print(f"conv_wgrad launches: {s['wgrad_launches']} on the train slice, {r['wgrad_launches']} training from "
+          f"TFRecords, {d['wgrad_launches']} distilling, {p['wgrad_launches']} in parallel.dryrun")
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
         "source": "faststyle_tpu_torch/csrc/gram.cu",
         "replaces": "faststyle_tpu/ops/pallas/gram.py:22",
-        "launches": s["launches"] + r["launches"] + p["launches"] + ss["launches"],
+        "launches": s["launches"] + r["launches"] + d["gram_launches"] + p["launches"] + ss["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "kernel_ms": k["kernel_ms"],
@@ -1355,6 +1630,23 @@ def main(argv: list) -> None:
         "library_ms": k["library_ms"],
         "library_device_ms": k["library_device_ms"],
         "slow_style_device_ms": k["slow_style_device_ms"],
+    }, {
+        # no TPU kernel stands behind it: the JAX package's conv2d, whose
+        # weight gradient XLA derives
+        "name": "conv_wgrad",
+        "route": "cuda",
+        "source": "faststyle_tpu_torch/csrc/conv_wgrad.cu",
+        "replaces": "faststyle_tpu/ops/layers.py:59",
+        "launches": s["wgrad_launches"] + r["wgrad_launches"] + d["wgrad_launches"] + p["wgrad_launches"],
+        "max_abs_err": w["max_abs_err"],
+        "ms": w["ms"],
+        "plain_ms": w["plain_ms"],
+        "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"],
+        "library_ms": w["library_ms"],
+        "library_deterministic_ms": w["library_deterministic_ms"],
+        "bfloat16_ms": w["bfloat16_ms"],
+        "ffma_bound_ms": w["ffma_bound_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -22,6 +22,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from faststyle_tpu_torch.ops import conv_grad
+
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
@@ -77,10 +79,12 @@ def conv2d(
 ) -> torch.Tensor:
     """NHWC x OIHW convolution; SAME/VALID as TF defines them (SAME splits
     the pad as pad_lo = total // 2, so stride-2 on an even extent pads
-    (0, 1), which torch's symmetric `padding=` cannot express)."""
+    (0, 1), which torch's symmetric `padding=` cannot express). When a
+    gradient can flow, its backward is ops/conv_grad's: forward convs and
+    the deterministic weight-gradient kernel, not cuDNN's atomics."""
     k_h, k_w = w.shape[2], w.shape[3]
     xn = _nchw(x)
-    pad = 0
+    pad = (0, 0)
     if padding == "SAME":
         ph = _same_pads(x.shape[1], k_h, stride)
         pw = _same_pads(x.shape[2], k_w, stride)
@@ -91,7 +95,7 @@ def conv2d(
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
     b = None if bias is None else bias.to(x.dtype)
-    return _nhwc(F.conv2d(xn, w.to(x.dtype), b, stride=stride, padding=pad))
+    return _nhwc(conv_grad.conv2d(xn, w.to(x.dtype), b, stride, pad))
 
 
 def transposed_conv2d(x: torch.Tensor, w_iohw: torch.Tensor, stride: int) -> torch.Tensor:
