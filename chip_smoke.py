@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (faststyle_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, then the kernels and ok lines
+    python3 chip_smoke.py wgrad repro  # device, build, then only the named phases; no ok line
 
 Phases, each raising on failure (the script then exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit, turns
@@ -23,9 +24,11 @@ Phases, each raising on failure (the script then exits non-zero):
   4. wgrad   — the weight-gradient kernel (conv_wgrad) against float64 at the
                transform net's 16 b4@256 shapes in float32 (under 2e-5 of
                max |dW| and half of 1xTF32's error) and bf16 (1e-2) and at
-               ragged shapes; two calls bitwise equal; device-alone times
+               ragged shapes, each in the design the rule gives it (strip
+               or tile); two calls bitwise equal; device-alone times
                beside cuDNN's default and deterministic weight gradients,
-               the plain version and the bound
+               the plain version and the bound, and at the strip shapes
+               the tile design's time too
   5. repro   — with no determinism flag set: two default `cli.train` 3-step
                runs in fresh processes, float32 and bfloat16, bit-equal;
                every convolution of the f32 and bf16 steps run twice
@@ -201,13 +204,14 @@ def build_phase() -> None:
     for name, (path, seconds) in built.items():
         print(f"built {path.relative_to(REPO)} in {seconds:.2f} s")
     tensor_core_check(built["gram"][0], "gram_")
-    tensor_core_check(built["conv_wgrad"][0], "wgrad_")
+    tensor_core_check(built["conv_wgrad"][0], "wgrad_", ("tile", "strip", "strip_kn"))
 
 
-def tensor_core_check(lib_path: Path, prefix: str) -> None:
-    """Raises unless every tile kernel (`<prefix>tile_kernel`) in the built
-    library has HMMA (tensor-core) instructions in its SASS; prints each
-    kernel's registers and local-memory bytes (spills) from cuobjdump."""
+def tensor_core_check(lib_path: Path, prefix: str, designs=("tile",)) -> None:
+    """Raises unless every kernel `<prefix><design>_kernel` in the built
+    library has HMMA (tensor-core) instructions in its SASS, and each design
+    has one; prints each kernel's registers and local-memory bytes (spills)
+    from cuobjdump."""
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     run = lambda flag: subprocess.run([str(tool), flag, str(lib_path)], capture_output=True,
                                       text=True, check=True, timeout=300).stdout
@@ -215,7 +219,10 @@ def tensor_core_check(lib_path: Path, prefix: str) -> None:
     for block in run("-sass").split("Function : ")[1:]:
         name, _, body = block.partition("\n")
         hmma[name.strip()] = len(re.findall(r"\bHMMA\.", body))
-    tiles = {n: k for n, k in hmma.items() if f"{prefix}tile_kernel" in n}
+    tiles = {n: k for n, k in hmma.items() if any(f"{prefix}{d}_kernel" in n for d in designs)}
+    missing = [d for d in designs if not any(f"{prefix}{d}_kernel" in n for n in tiles)]
+    if missing:
+        raise AssertionError(f"no {prefix}kernel of design {missing} in {lib_path.name}")
     name = None  # cuobjdump prints a function's name, then (maybe on the next line) its usage
     for line in run("-res-usage").splitlines():
         if m := re.search(r"Function (\S+):", line):
@@ -225,8 +232,8 @@ def tensor_core_check(lib_path: Path, prefix: str) -> None:
                   f"local (spills) {u[3]} B, HMMA {hmma.get(name, 0)}")
             name = None
     if not tiles or min(tiles.values()) == 0:
-        raise AssertionError(f"{prefix}tile kernels without HMMA in their SASS: {tiles}")
-    print(f"tensor cores: {len(tiles)} {prefix}tile kernels, each with HMMA "
+        raise AssertionError(f"{prefix}{'/'.join(designs)} kernels without HMMA in their SASS: {tiles}")
+    print(f"tensor cores: {len(tiles)} {prefix}{'/'.join(designs)} kernels, each with HMMA "
           f"({min(tiles.values())}-{max(tiles.values())} instructions)")
 
 
@@ -437,8 +444,10 @@ def wgrads_per_step(dtype=torch.float32) -> int:
                for shape, kernel, stride, _, co in transform_wgrads())
 
 
-# ragged: im2col width and co past one tile, odd extents, stride 2 with a symmetric pad
-WGRAD_RAGGED = [((3, 37, 29, 5), (3, 3), 2, (1, 1), 70), ((2, 19, 23, 3), (9, 9), 1, (4, 4), 3)]
+# ragged: im2col width and co past one tile, odd extents, stride 2 with a symmetric pad;
+# the 9x9 pad-4 ones (the strip design) with strips cut by both odd extents
+WGRAD_RAGGED = [((3, 37, 29, 5), (3, 3), 2, (1, 1), 70), ((2, 19, 23, 3), (9, 9), 1, (4, 4), 3),
+                ((3, 41, 35, 3), (9, 9), 1, (4, 4), 16)]
 WGRAD_F32_TOL = 2e-5  # of max |dW| against float64: float32 sums over 1e5-5e5 rows in fixed blocks
 WGRAD_BF16_TOL = 1e-2  # of max |dW|: bf16 inputs, f32 sums, against float64 of the same bf16 values
 
@@ -467,6 +476,13 @@ def cudnn_wgrad(x, dy, w_shape, stride, pad):
                                                [False, True, False])[1]
 
 
+def strip_note(sp) -> str:
+    """A strip plan in one phrase: its form and geometry."""
+    return (f"[{'kw on N' if sp.form == 'kn' else 'pixels on K'}] {sp.r}x{sp.wt} patch {sp.pr}x{sp.pc} "
+            f"smem {sp.smem} B blocks={sp.blocks} strips/block={sp.per} mt={sp.mt} swz={sp.swz} "
+            f"launches={sp.launches}")
+
+
 def wgrad_phase() -> dict:
     """The weight-gradient kernel against its plain version and float64 at
     the transform net's 16 b4@256 shapes in float32 and bf16 and at ragged
@@ -479,6 +495,7 @@ def wgrad_phase() -> dict:
     totals = {dt: dict.fromkeys(("kernel", "cudnn", "cudnn_det", "routed", "plain", "bytes", "ops", "ffma_ops"), 0.0)
               for dt in (torch.float32, torch.bfloat16)}
     worst = 0.0
+    strip_ms, tile_ms = {}, {}  # the two 9x9 shapes in float32: the strip design and the tile design
     shapes = [(wgrad_name(i), s) for i, s in enumerate(transform_wgrads())] + [
         (f"ragged{i}", s) for i, s in enumerate(WGRAD_RAGGED)]
     for dtype in (torch.float32, torch.bfloat16):
@@ -507,11 +524,38 @@ def wgrad_phase() -> dict:
                 ok = err <= WGRAD_BF16_TOL
                 note = f"vs float64 of the same bf16 values {err:.3e} (need <= {WGRAD_BF16_TOL})"
             worst = max(worst, err) if dtype == torch.float32 else worst
-            pl = conv_wgrad.plan(n * oh * ow, kernel[0] * kernel[1] * ci, co,
-                                 (x.numel() + dy.numel()) * x.element_size(), sms)
+            in_bytes = (x.numel() + dy.numel()) * x.element_size()
+            design = conv_wgrad.design(*kernel, ci, co, dtype)
+            if design == "strip":
+                sp = conv_wgrad.strip_plan(n, oh, ow, ci, co, *kernel, stride, in_bytes, sms)
+                plan_note = f"strip {strip_note(sp)}"
+            else:
+                pl = conv_wgrad.plan(n * oh * ow, kernel[0] * kernel[1] * ci, co, in_bytes, sms)
+                plan_note = (f"splits={pl.splits} chunk={pl.chunk} tile_c={pl.tile_c} blocks={pl.blocks} "
+                             f"launches={pl.launches}")
             xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
             w_shape = (co, ci, *kernel)
             k_ms = cuda_time_ms(lambda: conv_wgrad.conv_weight_grad_cuda(x, dy, kernel, stride, pad), graph=True)
+            tile_note = ""
+            if design == "strip":  # the tile design and every strip form at the same shape, in the same call
+                tiled = conv_wgrad.conv_weight_grad_cuda(x, dy, kernel, stride, pad, design="tile")
+                tile_err = float((tiled.double() - ref64).abs().max()) / scale
+                t_ms = cuda_time_ms(lambda: conv_wgrad.conv_weight_grad_cuda(x, dy, kernel, stride, pad,
+                                                                             design="tile"), graph=True)
+                tile_note = f", tile design {t_ms:.5f} (vs float64 {tile_err:.3e})"
+                for form in conv_wgrad.strip_forms(*kernel, ci, co, stride):
+                    run = functools.partial(conv_wgrad.conv_weight_grad_cuda, x, dy, kernel, stride, pad,
+                                            design="strip", form=form)
+                    f_got = run()
+                    f_err = float((f_got.double() - ref64).abs().max()) / scale
+                    f_same = torch.equal(f_got, run())
+                    ok = ok and f_err <= WGRAD_F32_TOL and 2 * f_err <= e1x and f_same
+                    f_ms = cuda_time_ms(run, graph=True)
+                    fp = conv_wgrad.strip_plan(n, oh, ow, ci, co, *kernel, stride, in_bytes, sms, form)
+                    tile_note += (f"; strip form {strip_note(fp)}{' (the rule)' if fp == sp else ''}: "
+                                  f"{f_ms:.5f} ms, vs float64 {f_err:.3e}, bit-equal {f_same}")
+                if name in ("init_0", "final"):
+                    strip_ms[name], tile_ms[name] = k_ms, t_ms
             c_ms = cuda_time_ms(lambda: cudnn_wgrad(xn, dyn, w_shape, stride, pad), graph=True)
             with torch.backends.cudnn.flags(enabled=True, deterministic=True, allow_tf32=False):
                 d_ms = cuda_time_ms(lambda: cudnn_wgrad(xn, dyn, w_shape, stride, pad), graph=True)
@@ -520,12 +564,12 @@ def wgrad_phase() -> dict:
             b_ms = max(t_bytes, t_ops)
             by_kernel = conv_grad.wgrad_by_kernel(w_shape, stride, dtype)
             check(ok and same, f"conv_wgrad {name} x {list(shape)} k{kernel[0]}x{kernel[1]} s{stride} p{pad[0]} "
-                               f"co {co} {dt} (the step takes {'the kernel' if by_kernel else 'cuDNN deterministic'})"
-                               f": {note}; two calls bit-equal {same}; device-alone kernel "
-                               f"{k_ms:.5f} ms, cuDNN default {c_ms:.5f}, cuDNN deterministic {d_ms:.5f}, plain "
-                               f"(eager) {p_ms:.5f}, bound {b_ms:.5f} ({'bytes' if t_bytes > t_ops else 'operations'}) "
-                               f"share {b_ms / k_ms:.3f}; plan splits={pl.splits} chunk={pl.chunk} "
-                               f"tile_c={pl.tile_c} blocks={pl.blocks} launches={pl.launches}")
+                               f"co {co} {dt} design {design} (the step takes "
+                               f"{'the kernel' if by_kernel else 'cuDNN deterministic'}): {note}; two calls "
+                               f"bit-equal {same}; device-alone kernel {k_ms:.5f} ms{tile_note}, cuDNN default "
+                               f"{c_ms:.5f}, cuDNN deterministic {d_ms:.5f}, plain (eager) {p_ms:.5f}, bound "
+                               f"{b_ms:.5f} ({'bytes' if t_bytes > t_ops else 'operations'}) share "
+                               f"{b_ms / k_ms:.3f}; plan {plan_note}")
             if not name.startswith("ragged"):
                 tot = totals[dtype]
                 for key, val in (("kernel", k_ms), ("cudnn", c_ms), ("cudnn_det", d_ms),
@@ -542,7 +586,7 @@ def wgrad_phase() -> dict:
     return {"max_abs_err": worst, "ms": f32["kernel"], "plain_ms": f32["plain"], "bound_ms": f32["bound"],
             "bound_by": "bytes" if f32["bytes"] > f32["ops"] else "operations", "library_ms": f32["cudnn"],
             "library_deterministic_ms": f32["cudnn_det"], "bfloat16_ms": totals[torch.bfloat16]["kernel"],
-            "ffma_bound_ms": f32["ffma_ops"]}
+            "ffma_bound_ms": f32["ffma_ops"], "strip_ms": strip_ms, "tile_ms": tile_ms}
 
 
 def write_inputs(root: Path) -> tuple[Path, Path]:
@@ -1597,9 +1641,24 @@ def parallel_phase(smi: str) -> dict:
 
 
 def main(argv: list) -> None:
-    """Every phase in order, then the kernels and ok lines."""
+    """Every phase in order, then the kernels and ok lines. With phase names
+    as arguments (`python3 chip_smoke.py wgrad repro`): the device and build
+    phases, then only those, then a line naming them and no kernels or ok
+    line, so a partial run cannot pass for a whole one."""
     smi = device_phase()
     build_phase()
+    if argv:
+        chosen = {"kernel": kernel_phase, "wgrad": wgrad_phase, "repro": repro_phase, "slice": slice_phase,
+                  "records": records_phase, "distill": distill_phase, "serve": serve_phase,
+                  "parallel": lambda: parallel_phase(smi), "stream": stream_phase, "slow": slow_style_phase}
+        unknown = [a for a in argv if a not in chosen]
+        if unknown:
+            raise SystemExit(f"chip_smoke: unknown phases {unknown}; the phases are {list(chosen)}")
+        for name in argv:
+            chosen[name]()
+        print(f"chip_smoke: partial run of phases {' '.join(argv)} (with device and build): passed; "
+              f"no kernels or ok line")
+        return
     k = kernel_phase()
     w = wgrad_phase()
     repro_phase()
@@ -1647,6 +1706,8 @@ def main(argv: list) -> None:
         "library_deterministic_ms": w["library_deterministic_ms"],
         "bfloat16_ms": w["bfloat16_ms"],
         "ffma_bound_ms": w["ffma_bound_ms"],
+        "strip_ms": w["strip_ms"],
+        "tile_ms": w["tile_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

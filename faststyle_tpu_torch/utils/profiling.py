@@ -37,7 +37,7 @@ import torch
 _FAMILIES = (
     ("gram", ("gram_tile_kernel", "gram_reduce_kernel")),
     # the port's weight-gradient kernel, apart from cuDNN's "wgrad" kernels
-    ("conv_wgrad", ("wgrad_tile_kernel", "wgrad_reduce_kernel")),
+    ("conv_wgrad", ("wgrad_tile_kernel", "wgrad_strip_kernel", "wgrad_strip_kn_kernel", "wgrad_reduce_kernel")),
     ("optimizer", ("adam", "multi_tensor_apply")),
     ("conv", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd", "fft", "wgrad", "dgrad")),
     ("matmul", ("gemm", "cutlass", "ampere", "sm90")),

@@ -229,6 +229,9 @@ def test_profiling_counts_the_kernel_apart_from_cudnn():
     from faststyle_tpu_torch.utils import profiling
 
     assert profiling.family("void (anonymous namespace)::wgrad_tile_kernel<float, 16>(float const*, ...)") == "conv_wgrad"
+    assert profiling.family("void (anonymous namespace)::wgrad_strip_kernel<11, 1>(float const*, ...)") == "conv_wgrad"
+    assert profiling.family("void (anonymous namespace)::wgrad_strip_kn_kernel<9, 2, false>(float const*, ...)") \
+        == "conv_wgrad"
     assert profiling.family("void (anonymous namespace)::wgrad_reduce_kernel(float const*, float*, int)") == "conv_wgrad"
     assert profiling.family("sm90_xmma_wgrad_implicit_gemm_indexed_f32f32_tf32f32") == "conv"
 
