@@ -83,6 +83,14 @@ Phases, each raising on failure (the script then exits non-zero):
                chicago.jpg at its native 474x712 (random VGG16), with the Gram
                launch count, twice (bit-equal); 5 steps in bfloat16; 3 steps at 256x256 on the
                card against the CPU from the same start
+ 13. bench   — `python3 -m faststyle_tpu_torch.bench --quick --skip_gate`
+               in bfloat16 and in float32, then `--dp --quick`, each in its
+               own process (the bench's gate runs this script, hence
+               --skip_gate): each JSON line printed, its value positive, the
+               card's name and power limit in it, the Gram launches 4 a timed
+               train and DP step and 4 a slow-style step (plus the 4 target
+               Grams), the conv_wgrad launches the rule's count a timed f32
+               step (6) and none in bf16 or slow-style
 Every check of a phase prints its reading; a phase raises at its end if
 any of its checks failed. Then the `kernels` JSON line, and last the `ok`
 line.
@@ -1640,6 +1648,50 @@ def parallel_phase(smi: str) -> dict:
     return {"launches": launches, "wgrad_launches": wgrad_launches, "spatial_ms": readings}
 
 
+BENCH_RUNS = (("bfloat16", ["--quick", "--skip_gate"]),
+              ("float32", ["--quick", "--skip_gate", "--precision", "float32"]),
+              ("dp", ["--dp", "--quick"]))
+BENCH_TIMEOUT = 400  # seconds a bench process
+
+
+def bench_phase() -> dict:
+    """The port's bench in its own processes at --quick sizes: bf16 and
+    float32 (each with its DP bench), then --dp alone; each line's value,
+    the card's identity and the kernels' launch counts."""
+    phase("bench")
+    check = Checks("bench")
+    card = torch.cuda.get_device_name(0)
+    launches = wgrad_launches = 0
+    for tag, args in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = port_subprocess(["-m", "faststyle_tpu_torch.bench", *args], REPO, BENCH_TIMEOUT)
+        secs = time.perf_counter() - t0
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        d = line["details"]
+        print(f"bench {' '.join(args)}: {secs:.1f} s\n{json.dumps(line)}", flush=True)
+        check(line["value"] > 0 and d.get("device_name") == card and d.get("power_limit_w"),
+              f"bench {tag}: {line['metric']} = {line['value']} {line['unit']}, device_name {d.get('device_name')!r} "
+              f"(need {card!r}), power_limit_w {d.get('power_limit_w')}")
+        dp = d if tag == "dp" else d["dp_scaling"]
+        tf32 = (d["cudnn_allow_tf32"], d["matmul_allow_tf32"], dp["ranks_cudnn_allow_tf32"],
+                dp["ranks_matmul_allow_tf32"])
+        check(not any(tf32), f"bench {tag}: TF32 off in the bench and its DP ranks (cudnn, matmul; ranks' "
+                             f"cudnn, matmul: {tf32})")
+        runs = [("dp", dp, "", dp["timed_steps"], torch.float32, 0, True)]  # the DP step is the recipe's, f32
+        if tag != "dp":
+            dtype = getattr(torch, tag)
+            runs += [("train", d, "train_", d["train_timed_steps"], dtype, 0, True),
+                     ("slow-style", d, "slow_style_", d["slow_style_steps"], dtype, 4, False)]
+        for what, rec, key, steps, dtype, targets, wgrad in runs:
+            g, w = rec[f"{key}gram_launches"], rec[f"{key}conv_wgrad_launches"]
+            want_g, want_w = 4 * steps + targets, wgrads_per_step(dtype) * steps if wgrad else 0
+            check(g == want_g and w == want_w, f"bench {tag}, {what}: {steps} steps, gram launches {g} (need "
+                                               f"{want_g}), conv_wgrad launches {w} (need {want_w})")
+            launches, wgrad_launches = launches + g, wgrad_launches + w
+    check.done()
+    return {"launches": launches, "wgrad_launches": wgrad_launches}
+
+
 def main(argv: list) -> None:
     """Every phase in order, then the kernels and ok lines. With phase names
     as arguments (`python3 chip_smoke.py wgrad repro`): the device and build
@@ -1650,7 +1702,8 @@ def main(argv: list) -> None:
     if argv:
         chosen = {"kernel": kernel_phase, "wgrad": wgrad_phase, "repro": repro_phase, "slice": slice_phase,
                   "records": records_phase, "distill": distill_phase, "serve": serve_phase,
-                  "parallel": lambda: parallel_phase(smi), "stream": stream_phase, "slow": slow_style_phase}
+                  "parallel": lambda: parallel_phase(smi), "stream": stream_phase, "slow": slow_style_phase,
+                  "bench": bench_phase}
         unknown = [a for a in argv if a not in chosen]
         if unknown:
             raise SystemExit(f"chip_smoke: unknown phases {unknown}; the phases are {list(chosen)}")
@@ -1669,16 +1722,19 @@ def main(argv: list) -> None:
     p = parallel_phase(smi)
     stream_phase()
     ss = slow_style_phase()
+    b = bench_phase()
     print(f"gram launches: {s['launches']} on the train slice, {r['launches']} training from TFRecords, "
-          f"{d['gram_launches']} distilling, {p['launches']} in parallel.dryrun, {ss['launches']} on slow-style")
+          f"{d['gram_launches']} distilling, {p['launches']} in parallel.dryrun, {ss['launches']} on slow-style, "
+          f"{b['launches']} in the bench")
     print(f"conv_wgrad launches: {s['wgrad_launches']} on the train slice, {r['wgrad_launches']} training from "
-          f"TFRecords, {d['wgrad_launches']} distilling, {p['wgrad_launches']} in parallel.dryrun")
+          f"TFRecords, {d['wgrad_launches']} distilling, {p['wgrad_launches']} in parallel.dryrun, "
+          f"{b['wgrad_launches']} in the bench")
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
         "source": "faststyle_tpu_torch/csrc/gram.cu",
         "replaces": "faststyle_tpu/ops/pallas/gram.py:22",
-        "launches": s["launches"] + r["launches"] + d["gram_launches"] + p["launches"] + ss["launches"],
+        "launches": s["launches"] + r["launches"] + d["gram_launches"] + p["launches"] + ss["launches"] + b["launches"],
         "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"],
         "kernel_ms": k["kernel_ms"],
@@ -1696,7 +1752,8 @@ def main(argv: list) -> None:
         "route": "cuda",
         "source": "faststyle_tpu_torch/csrc/conv_wgrad.cu",
         "replaces": "faststyle_tpu/ops/layers.py:59",
-        "launches": s["wgrad_launches"] + r["wgrad_launches"] + d["wgrad_launches"] + p["wgrad_launches"],
+        "launches": (s["wgrad_launches"] + r["wgrad_launches"] + d["wgrad_launches"] + p["wgrad_launches"]
+                     + b["wgrad_launches"]),
         "max_abs_err": w["max_abs_err"],
         "ms": w["ms"],
         "plain_ms": w["plain_ms"],

@@ -101,6 +101,30 @@ def output_shape(h: int, w: int) -> tuple[int, int]:
     return law(h), law(w)
 
 
+def conv_shapes(h: int, w: int) -> list[tuple[int, int, int, int, int, int, int, int]]:
+    """The resize walk's 16 convolutions as the port runs them, each as
+    (in_h, in_w, out_h, out_w, k, stride, ci, co): the input after the
+    reflect pad, SAME padding inside the conv; a resize-conv as its phase
+    form, a 2x2 VALID conv with 4*co outputs over x padded by one row and
+    column. The FLOP counts from shapes (utils.profiling.stylize_ops, the
+    bench's train step) read this one list."""
+    out = []
+    hh, ww = h + 2 * _PAD, w + 2 * _PAD
+    for k, ci, co, s in _INIT_SPECS:
+        oh, ow = -(-hh // s), -(-ww // s)
+        out.append((hh, ww, oh, ow, k, s, ci, co))
+        hh, ww = oh, ow
+    for _ in range(2 * _NUM_RESBLOCKS):  # 3x3 VALID 64 -> 64
+        out.append((hh, ww, hh - 2, ww - 2, 3, 1, 64, 64))
+        hh, ww = hh - 2, ww - 2
+    for _k, ci, co in _UP_SPECS:
+        out.append((hh + 1, ww + 1, hh, ww, 2, 1, ci, 4 * co))
+        hh, ww = 2 * hh, 2 * ww
+    k, ci, co = _FINAL_SPEC
+    out.append((hh, ww, hh, ww, k, 1, ci, co))
+    return out
+
+
 def apply_with_features(
     params: Params,
     x: torch.Tensor,

@@ -18,7 +18,9 @@ step, the device's busy share (traced device time over the untraced time)
 and the per-family milliseconds. TF32 is off. Needs a CUDA card.
 
 Helpers: `hard_sync(x)` waits for x's device, `StepTimer` gives steps/s
-with a sync only at its boundaries, `trace(log_dir)` writes a Chrome trace.
+with a sync only at its boundaries, `trace(log_dir)` writes a Chrome trace,
+`recipe_step` builds the recipe train step on seeded random weights (here
+and in the bench), `stylize_ops` counts a served frame's FLOPs.
 """
 
 from __future__ import annotations
@@ -161,21 +163,34 @@ def _device_breakdown(step_fn, steps: int) -> dict:
     }
 
 
-def profile_train_step(batch_size: int, size: int, compute_dtype, steps: int) -> dict:
-    from faststyle_tpu_torch import full_float32, resolve_device
+def recipe_step(size: int, compute_dtype=None, *, device: str | torch.device = "cuda", make_step=None, **step_kwargs):
+    """The recipe train step (`TrainConfig.make()`) on seeded random
+    weights, for measuring its cost: VGG16 from a seeded torch.Generator,
+    the style Grams of a seeded random size x size style image, the
+    transform net's state from seed 1. `make_step(vgg, grams, config,
+    **step_kwargs)` builds the step (default `train_step.make_train_step`;
+    the DP bench passes `parallel.data_parallel.make_dp_train_step`).
+    Returns (step_fn, state)."""
+    import numpy as np
+
     from faststyle_tpu_torch.models import vgg16
     from faststyle_tpu_torch.training import slow_style, train_step
 
+    config = train_step.TrainConfig.make(compute_dtype=compute_dtype)
+    vgg = vgg16.init_params(torch.Generator().manual_seed(0), device=device)
+    style = np.random.default_rng(0).uniform(0, 255, (1, size, size, 3)).astype(np.float32)
+    grams = slow_style.style_target_grams(vgg, style, tuple(dict(config.style_weights)))
+    state = train_step.init_state(config, seed=1, device=device)
+    return (make_step or train_step.make_train_step)(vgg, grams, config, **step_kwargs), state
+
+
+def profile_train_step(batch_size: int, size: int, compute_dtype, steps: int) -> dict:
+    from faststyle_tpu_torch import full_float32, resolve_device
+
     device = resolve_device("cuda")
     full_float32()
-    gen = torch.Generator().manual_seed(0)
-    vgg = vgg16.init_params(gen, device=device)
-    config = train_step.TrainConfig.make(compute_dtype=compute_dtype)
-    style_layers = tuple(dict(config.style_weights))
-    grams = slow_style.style_target_grams(vgg, torch.rand(1, size, size, 3, generator=gen) * 255, style_layers)
-    state = train_step.init_state(config, seed=0, device=device)
-    step = train_step.make_train_step(vgg, grams, config)
-    batch = (torch.rand(batch_size, size, size, 3, generator=gen) * 255).to(device)
+    step, state = recipe_step(size, compute_dtype, device=device)
+    batch = (torch.rand(batch_size, size, size, 3, generator=torch.Generator().manual_seed(0)) * 255).to(device)
     out = _device_breakdown(lambda: step(state, batch), steps)
     return {
         "mode": "train_step",
@@ -189,26 +204,11 @@ def profile_train_step(batch_size: int, size: int, compute_dtype, steps: int) ->
 def stylize_ops(height: int, width: int) -> float:
     """Multiply-adds x 2 of one frame's convolutions (the transform net's
     16 convs at their output sizes, the resize-convs as the fused phase
-    convs run them), from the shapes alone."""
-    from faststyle_tpu_torch.models import transform_net as T
+    convs run them: `transform_net.conv_shapes`), from the shapes alone."""
+    from faststyle_tpu_torch.models import transform_net
 
-    hp, wp = height + 80, width + 80
-    flops = 0
-    size = (hp, wp)
-    for k, cin, cout, s in T._INIT_SPECS:
-        size = (-(-size[0] // s), -(-size[1] // s))
-        flops += 2 * size[0] * size[1] * k * k * cin * cout
-    for _ in range(T._NUM_RESBLOCKS):
-        for _ in range(2):
-            size = (size[0] - 2, size[1] - 2)
-            flops += 2 * size[0] * size[1] * 9 * 64 * 64
-    for _k, cin, cout in T._UP_SPECS:
-        # one 2x2 conv (4 taps) with 4*cout outputs per input position
-        flops += 2 * size[0] * size[1] * 4 * cin * 4 * cout
-        size = (2 * size[0], 2 * size[1])
-    k, cin, cout = T._FINAL_SPEC
-    flops += 2 * size[0] * size[1] * k * k * cin * cout
-    return float(flops)
+    return float(sum(2 * oh * ow * k * k * ci * co
+                     for _ih, _iw, oh, ow, k, _s, ci, co in transform_net.conv_shapes(height, width)))
 
 
 def profile_stylize(height: int, width: int, compute_dtype, steps: int) -> dict:
