@@ -1,0 +1,16 @@
+"""A served frame's convolution FLOPs (counted from shapes, benchmark/flops.py)
+times the frames submitted in the traced window, over that window and
+bf16's peak."""
+
+from benchmark import flops
+
+UNIT, BETTER, SOURCE = "%", "higher", "device_trace"
+LAYER, MOVES = "stylizer and transform net", "frames_per_s"
+
+
+def read(run):
+    peaks, trace = run.peaks(), run.trace
+    if peaks is None or trace is None or trace.window_s <= 0:
+        return None
+    per_frame = flops.stylize_frame_flops(run.config["model"], run.traffic["height"], run.traffic["width"])
+    return 100.0 * per_frame * trace.count_spans("bench.submit") / trace.window_s / peaks["bfloat16_flops"]
