@@ -103,7 +103,12 @@ class FramePipeline:
     event. `fetch()` waits for the oldest frame's event and returns
     (submit time, HxWx3 uint8 RGB). A returned array may be a view of the
     slot's buffer: it stays valid until that slot is submitted again, at
-    the earliest `depth + 1` submits later; copy it to keep it."""
+    the earliest `depth + 1` submits later; copy it to keep it.
+
+    Under a torch profiler each frame records `stream.submit` (children
+    `stream.slot_wait`, `stream.pack`, `stream.launch`) and `stream.fetch`
+    (`stream.result_wait`, `stream.unpack`), all with the frame's sequence
+    number as id (`utils.profiling.span`)."""
 
     def __init__(self, stylizer, height: int, width: int, depth: int):
         import torch
@@ -128,6 +133,7 @@ class FramePipeline:
             for _ in range(max(depth, 1) + 1)
         ]
         self._next = 0
+        self._seq = 0  # the next frame's sequence number: its spans' id
         self._inflight: deque = deque()
 
     def __len__(self) -> int:
@@ -135,35 +141,46 @@ class FramePipeline:
 
     def submit(self, frame) -> None:
         from faststyle_tpu_torch.inference import pack_u8_host
+        from faststyle_tpu_torch.utils.profiling import span
 
         t_submit = time.perf_counter()
-        host_in, host_out, event = self._slots[self._next]
-        self._next = (self._next + 1) % len(self._slots)
-        if event is not None:
-            event.synchronize()  # the slot's last frame has left both buffers
-        if self._stylizer.packed_input:
-            pack_u8_host(frame[None], out=host_in.numpy())
-        else:
-            host_in.numpy()[0] = frame
-        x = host_in.to(self._stylizer.device, non_blocking=True)
-        y = self._stylizer.stylize_device(x, self._hw if self._stylizer.packed_input else None)
-        host_out.copy_(y, non_blocking=True)
-        if event is not None:
-            event.record()
-        self._inflight.append((t_submit, host_out, event))
+        seq = self._seq
+        self._seq += 1
+        with span("stream.submit", seq):
+            host_in, host_out, event = self._slots[self._next]
+            self._next = (self._next + 1) % len(self._slots)
+            with span("stream.slot_wait"):
+                if event is not None:
+                    event.synchronize()  # the slot's last frame has left both buffers
+            with span("stream.pack"):
+                if self._stylizer.packed_input:
+                    pack_u8_host(frame[None], out=host_in.numpy())
+                else:
+                    host_in.numpy()[0] = frame
+            with span("stream.launch"):
+                x = host_in.to(self._stylizer.device, non_blocking=True)
+                y = self._stylizer.stylize_device(x, self._hw if self._stylizer.packed_input else None)
+                host_out.copy_(y, non_blocking=True)
+                if event is not None:
+                    event.record()
+            self._inflight.append((t_submit, seq, host_out, event))
 
     def fetch(self):
         from faststyle_tpu_torch.inference import unpack_u8_host
+        from faststyle_tpu_torch.utils.profiling import span
 
-        t_submit, host_out, event = self._inflight.popleft()
-        if event is not None:
-            event.synchronize()
-        h, w = self._hw
-        out = host_out.numpy()
-        if self._stylizer.packed_output:
-            # the net's shape law can exceed (h, w) by up to 3 px: crop
-            return t_submit, unpack_u8_host(out, *self._out_hw)[0, :h, :w]
-        return t_submit, out[0, :h, :w]
+        t_submit, seq, host_out, event = self._inflight.popleft()
+        with span("stream.fetch", seq):
+            with span("stream.result_wait"):
+                if event is not None:
+                    event.synchronize()
+            with span("stream.unpack"):
+                h, w = self._hw
+                out = host_out.numpy()
+                if self._stylizer.packed_output:
+                    # the net's shape law can exceed (h, w) by up to 3 px: crop
+                    return t_submit, unpack_u8_host(out, *self._out_hw)[0, :h, :w]
+                return t_submit, out[0, :h, :w]
 
     def clear(self) -> None:
         while self._inflight:

@@ -30,6 +30,7 @@ import torch
 
 from faststyle_tpu_torch import resolve_device
 from faststyle_tpu_torch.data import tfrecord
+from faststyle_tpu_torch.utils.profiling import span
 
 try:
     import cv2
@@ -132,10 +133,11 @@ class Batcher:
             epoch += 1
 
     def _decode(self, rec: bytes) -> Optional[np.ndarray]:
-        enc = tfrecord.decode_example(rec).get("image/encoded")
-        if enc is None:
-            return None
-        return _decode_resize(enc, self._resize)
+        with span("data.decode"):
+            enc = tfrecord.decode_example(rec).get("image/encoded")
+            if enc is None:
+                return None
+            return _decode_resize(enc, self._resize)
 
     def __iter__(self) -> Iterator[np.ndarray]:
         buffer: List[np.ndarray] = []
@@ -229,14 +231,15 @@ def device_prefetch(
         return False
 
     def to_device(batch):
-        t = torch.as_tensor(np.asarray(batch, np.float32))
-        if copy_stream is None:
-            return t.to(device), None
-        with torch.cuda.stream(copy_stream):
-            out = t.pin_memory().to(device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(copy_stream)
-        return out, ready
+        with span("data.to_device"):
+            t = torch.as_tensor(np.asarray(batch, np.float32))
+            if copy_stream is None:
+                return t.to(device), None
+            with torch.cuda.stream(copy_stream):
+                out = t.pin_memory().to(device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+            return out, ready
 
     def feeder():
         try:

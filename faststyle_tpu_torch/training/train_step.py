@@ -18,6 +18,7 @@ import torch
 
 from faststyle_tpu_torch import losses
 from faststyle_tpu_torch.models import transform_net, vgg16
+from faststyle_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -146,22 +147,24 @@ def make_grad_fn(
         return acts, tgt
 
     def grad_fn(net: transform_net.TransformNet, batch: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if fused_content_tower:
-            y = net(batch, compute_dtype=config.compute_dtype)
-            acts, tgt = fused_acts(batch, y)
-        else:
-            with torch.no_grad():
-                tgt = (
-                    vgg16.apply(vgg_params, batch, content_layers, compute_dtype=config.compute_dtype)
-                    if content_layers
-                    else {}
-                )
-            y = net(batch, compute_dtype=config.compute_dtype)
-            acts = vgg16.apply(vgg_params, y, all_layers, compute_dtype=config.compute_dtype)
-        total, parts = losses.perceptual_loss(
-            acts, tgt, target_grams, content_w, style_w, y, config.beta
-        )
-        total.backward()
+        with span("train.forward"):
+            if fused_content_tower:
+                y = net(batch, compute_dtype=config.compute_dtype)
+                acts, tgt = fused_acts(batch, y)
+            else:
+                with torch.no_grad():
+                    tgt = (
+                        vgg16.apply(vgg_params, batch, content_layers, compute_dtype=config.compute_dtype)
+                        if content_layers
+                        else {}
+                    )
+                y = net(batch, compute_dtype=config.compute_dtype)
+                acts = vgg16.apply(vgg_params, y, all_layers, compute_dtype=config.compute_dtype)
+            total, parts = losses.perceptual_loss(
+                acts, tgt, target_grams, content_w, style_w, y, config.beta
+            )
+        with span("train.backward"):
+            total.backward()
         return {k: v.detach() for k, v in parts.items()}
 
     return grad_fn
@@ -186,11 +189,13 @@ def make_train_step(
     grad_fn = make_grad_fn(vgg_params, target_grams, config, fused_content_tower=fused_content_tower)
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        batch = to_device(batch, next(state.net.parameters()).device)
-        state.optimizer.zero_grad(set_to_none=True)
-        parts = grad_fn(state.net, batch)
-        state.optimizer.step()
-        state.step += 1
+        with span("train.step", state.step):
+            batch = to_device(batch, next(state.net.parameters()).device)
+            state.optimizer.zero_grad(set_to_none=True)
+            parts = grad_fn(state.net, batch)
+            with span("train.optimizer"):
+                state.optimizer.step()
+            state.step += 1
         return state, parts
 
     return train_step

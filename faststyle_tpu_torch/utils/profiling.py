@@ -1,5 +1,5 @@
-"""Profiling helpers and where the device time goes (counterpart of
-faststyle_tpu/utils/profiling.py).
+"""Profiling helpers, the program's spans, and where the device time goes
+(counterpart of faststyle_tpu/utils/profiling.py).
 
     python -m faststyle_tpu_torch.utils.profiling [--batch_size 4] [--size 256]
         [--precision float32|bfloat16] [--steps 5]
@@ -11,50 +11,120 @@ random batch; stylize mode serves uint8 frames of the given height and
 width through the Stylizer (upload, forward, uint8 download, as the
 streaming CLI's depth-1 loop does) with random transform-net weights. Each
 traces `--steps` steps or frames with torch.profiler after two warm-up
-ones, and prints the kernels that take the most device time, the device
-time by kernel family, and a last JSON line with the untraced and traced
-times per step (or frame), the device operations (kernels and copies) per
-step, the device's busy share (traced device time over the untraced time)
-and the per-family milliseconds. TF32 is off. Needs a CUDA card.
+ones, and prints the kernels that take the most device time and a last
+JSON line with the untraced and traced times per step (or frame), the
+device operations (kernels and copies) per step and the device's busy
+share (traced device time over the untraced time). TF32 is off. Needs a
+CUDA card.
 
-Helpers: `hard_sync(x)` waits for x's device, `StepTimer` gives steps/s
-with a sync only at its boundaries, `trace(log_dir)` writes a Chrome trace,
-`recipe_step` builds the recipe train step on seeded random weights (here
-and in the bench), `stylize_ops` counts a served frame's FLOPs.
+Spans: `with span("stream.pack", id):` around a piece of the program's
+host work records its name, its id (the enclosing span's when None), the
+enclosing span on the same thread, the thread and its start and end in
+`time.time_ns()` nanoseconds, the clock of torch.profiler's events, so a
+span lies on the device trace's time line. Recording follows the torch
+profiler: it is on in every thread of the process exactly while a
+torch.profiler records, and off otherwise, when a span is one flag test
+and a shared no-op. `recorded()` returns the records, newest last, from a
+bounded buffer.
+
+Helpers: `hard_sync(x)` waits for x's device, `trace(log_dir)` writes a
+Chrome trace with the program's spans in it, `recipe_step` builds the
+recipe train step on seeded random weights (here and in the bench),
+`stylize_ops` counts a served frame's FLOPs.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
+import os
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
-# kernel-name fragments -> family, first match wins
-_FAMILIES = (
-    ("gram", ("gram_tile_kernel", "gram_reduce_kernel")),
-    # the port's weight-gradient kernel, apart from cuDNN's "wgrad" kernels
-    ("conv_wgrad", ("wgrad_tile_kernel", "wgrad_strip_kernel", "wgrad_strip_kn_kernel", "wgrad_reduce_kernel")),
-    ("optimizer", ("adam", "multi_tensor_apply")),
-    ("conv", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd", "fft", "wgrad", "dgrad")),
-    ("matmul", ("gemm", "cutlass", "ampere", "sm90")),
-    ("pool", ("max_pool", "maxpool")),
-    ("reduce", ("reduce", "norm", "welford", "var_mean")),
-    ("copy", ("copy", "memcpy", "memset", "cat", "index", "gather", "scatter")),
-)
+# torch.profiler sets this process-wide flag when it starts recording and
+# clears it when it stops, whichever thread runs it;
+# torch.autograd._profiler_enabled() answers for its own thread only, so a
+# decode thread would never see a profiler started on the main thread.
+_TORCH_PROFILER = torch.autograd.profiler
+MAX_RECORDS = 1 << 18
 
 
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in _FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "elementwise"
+class Span(NamedTuple):
+    """A recorded span. `parent` is the name of the enclosing span on the
+    same thread, `thread` the thread's native id (a Chrome trace's tid);
+    times are `time.time_ns()` nanoseconds."""
+
+    name: str
+    id: Optional[int]
+    parent: Optional[str]
+    thread: int
+    start_ns: int
+    end_ns: int
+
+
+_records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
+_records_lock = threading.Lock()
+
+
+class _ThreadState(threading.local):
+    """Each thread's open spans, innermost last, and its native id (read
+    once: it is a system call)."""
+
+    def __init__(self):
+        self.stack: list = []
+        self.native_id = threading.get_native_id()
+
+
+_thread = _ThreadState()
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Recording:
+    __slots__ = ("name", "id", "parent", "start_ns")
+
+    def __init__(self, name: str, id: Optional[int]):
+        self.name = name
+        self.id = id
+
+    def __enter__(self):
+        stack = _thread.stack
+        parent = stack[-1] if stack else None
+        self.parent = parent and parent.name
+        if self.id is None and parent is not None:
+            self.id = parent.id
+        stack.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        end_ns = time.time_ns()
+        _thread.stack.pop()
+        record = Span(self.name, self.id, self.parent, _thread.native_id, self.start_ns, end_ns)
+        with _records_lock:
+            _records.append(record)
+
+
+def span(name: str, id: Optional[int] = None):
+    """A context manager that records the block as a span while a torch
+    profiler records, and does nothing otherwise. `id` ties the spans of one
+    frame or step together; None takes the enclosing span's."""
+    if not _TORCH_PROFILER._is_profiler_enabled:
+        return _NO_SPAN
+    return _Recording(name, id)
+
+
+def recorded() -> list[Span]:
+    """The recorded spans in the order they ended (at most MAX_RECORDS, the
+    newest kept)."""
+    with _records_lock:
+        return list(_records)
 
 
 def _first_tensor(x) -> Optional[torch.Tensor]:
@@ -79,47 +149,43 @@ def hard_sync(x) -> None:
         torch.cuda.synchronize(t.device)
 
 
-class StepTimer:
-    """Steady-state steps/sec with a sync only at measurement boundaries."""
-
-    def __init__(self):
-        self._t0: Optional[float] = None
-        self._steps = 0
-
-    def start(self, sync_on=None) -> None:
-        if sync_on is not None:
-            hard_sync(sync_on)
-        self._t0 = time.perf_counter()
-        self._steps = 0
-
-    def step(self) -> None:
-        self._steps += 1
-
-    def rate(self, sync_on=None) -> float:
-        if sync_on is not None:
-            hard_sync(sync_on)
-        dt = time.perf_counter() - (self._t0 or time.perf_counter())
-        return self._steps / dt if dt > 0 else float("nan")
-
-
 @contextlib.contextmanager
 def trace(log_dir: str | Path) -> Iterator[torch.profiler.profile]:
     """Profile the block with torch.profiler (the CPU, and CUDA when there
     is a card) and write `<log_dir>/trace.json`, a Chrome trace that
-    Perfetto and chrome://tracing open."""
+    Perfetto and chrome://tracing open, with the program's spans of the
+    block (category `program_span`) on the threads that ran them."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
+    started_ns = time.time_ns()
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(str(log_dir / "trace.json"))
+    path = log_dir / "trace.json"
+    prof.export_chrome_trace(str(path))
+    _add_spans(path, [s for s in recorded() if s.start_ns >= started_ns])
+
+
+def _add_spans(path: Path, spans: list[Span]) -> None:
+    """Append spans to a Chrome trace torch.profiler wrote: its `ts` are
+    microseconds after `baseTimeNanoseconds` on the spans' own clock."""
+    data = json.loads(path.read_text())
+    base = data.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    data["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": s.thread,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"id": s.id, "parent": s.parent}}
+        for s in spans
+    )
+    path.write_text(json.dumps(data))
 
 
 def _device_breakdown(step_fn, steps: int) -> dict:
     """Untraced ms per step (after two warm-up steps), then a traced window
-    of `steps`: device ms by kernel and by family, operations per step."""
+    of `steps`: device ms by kernel, operations per step."""
     for _ in range(2):
         step_fn()
     torch.cuda.synchronize()
@@ -146,9 +212,6 @@ def _device_breakdown(step_fn, steps: int) -> dict:
             per_kernel[evt.name] += evt.time_range.elapsed_us() / 1e3
             launches += 1
     busy_ms = sum(per_kernel.values())
-    fams: dict[str, float] = defaultdict(float)
-    for name, ms in per_kernel.items():
-        fams[family(name)] += ms
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]
     return {
         "steps": steps,
@@ -158,7 +221,6 @@ def _device_breakdown(step_fn, steps: int) -> dict:
         "device_busy_ms_per_step": busy_ms / steps,
         # device time of the traced steps over the untraced step time
         "device_busy_share": busy_ms / wall_ms,
-        "family_ms_per_step": {k: v / steps for k, v in sorted(fams.items(), key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": [(name[:100], ms / steps) for name, ms in top],
     }
 
@@ -254,8 +316,6 @@ def main(argv=None) -> dict:
     print(f"{torch.cuda.get_device_name(0)}: {out['precision']} {what}")
     for name, ms in out["top_kernels_ms_per_step"]:
         print(f"  {ms:9.4f} {unit}  {name}")
-    for fam, ms in out["family_ms_per_step"].items():
-        print(f"  {fam:12s} {ms:9.4f} {unit}")
     print(json.dumps({k: v for k, v in out.items() if k != "top_kernels_ms_per_step"}))
     return out
 

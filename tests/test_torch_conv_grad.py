@@ -225,17 +225,6 @@ def test_bf16_weight_grad_is_rounded_to_bf16(rng):
     torch.testing.assert_close(w.grad, w.grad.to(torch.bfloat16).float(), rtol=0, atol=0)
 
 
-def test_profiling_counts_the_kernel_apart_from_cudnn():
-    from faststyle_tpu_torch.utils import profiling
-
-    assert profiling.family("void (anonymous namespace)::wgrad_tile_kernel<float, 16>(float const*, ...)") == "conv_wgrad"
-    assert profiling.family("void (anonymous namespace)::wgrad_strip_kernel<11, 1>(float const*, ...)") == "conv_wgrad"
-    assert profiling.family("void (anonymous namespace)::wgrad_strip_kn_kernel<9, 2, false>(float const*, ...)") \
-        == "conv_wgrad"
-    assert profiling.family("void (anonymous namespace)::wgrad_reduce_kernel(float const*, float*, int)") == "conv_wgrad"
-    assert profiling.family("sm90_xmma_wgrad_implicit_gemm_indexed_f32f32_tf32f32") == "conv"
-
-
 def test_weight_gradient_route_by_shape():
     """The fixed rule: of a b4@256 step's 16 weight gradients, float32 sends
     all but the ten resblock convs to the kernel, bfloat16 none of them

@@ -284,20 +284,15 @@ def test_stylizer_takes_torch_or_numpy_params():
 
 
 def test_profiling_helpers(tmp_path):
-    """hard_sync and StepTimer on the CPU (nothing to wait for), trace()
-    writes a Chrome trace, and the stylize mode's operation count follows
-    the net's shapes (the same count for the JAX package's shape law)."""
+    """hard_sync on the CPU (nothing to wait for), trace() writes a Chrome
+    trace, and the stylize mode's operation count follows the net's shapes
+    (the same count for the JAX package's shape law)."""
     from faststyle_tpu_torch.utils import profiling
 
     x = torch.ones(4, 4)
     profiling.hard_sync({"a": [x]})
-    t = profiling.StepTimer()
-    t.start(sync_on=x)
-    t.step()
-    assert t.rate(sync_on=x) > 0
     with profiling.trace(tmp_path / "tr"):
         (x @ x).sum()
     assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
     assert TT.output_shape(1080, 1920) == JT.output_shape(1080, 1920)
     assert profiling.stylize_ops(1080, 1920) == 162454302720.0
-    assert profiling.family("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816fprop") == "conv"
