@@ -7,8 +7,8 @@
 Phases, each raising on failure (the script then exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit, turns
                TF32 off for matmuls and cuDNN (full float32 everywhere)
-  2. build   — compiles the Gram and weight-gradient kernels (nvcc), the
-               host pack library and the TFRecord codec (c++) from
+  2. build   — compiles the Gram, weight-gradient and instance-norm kernels
+               (nvcc), the host pack library and the TFRecord codec (c++) from
                faststyle_tpu_torch/csrc, all together, and checks with
                cuobjdump that the tile kernels run on the tensor cores (HMMA
                instructions in their SASS)
@@ -29,6 +29,17 @@ Phases, each raising on failure (the script then exits non-zero):
                beside cuDNN's default and deterministic weight gradients,
                the plain version and the bound, and at the strip shapes
                the tile design's time too
+  4b. norm   — the instance-norm kernel pair (ops/cuda/instance_norm) at
+               the 16 norms of a 3840x2160 frame, bfloat16 and float32,
+               each with the epilogue the serving walk fuses there, and
+               every epilogue at a ragged and an unaligned shape: moments
+               within 1e-5 of float64's, the output equal to the plain
+               chain's given the kernels' moments, two calls bitwise
+               equal; device-alone ms beside the byte bound (6 B an
+               element in bf16, 12 in float32) and the plain version's;
+               a 4K packed-u8 bf16 frame's pair launches (16), its
+               device-alone ms with the norms fused and plain, and how far
+               the two frames differ
   5. repro   — with no determinism flag set: two default `cli.train` 3-step
                runs in fresh processes, float32 and bfloat16, bit-equal;
                every convolution of the f32 and bf16 steps run twice
@@ -78,7 +89,8 @@ Phases, each raising on failure (the script then exits non-zero):
                1920x1080 frames in bfloat16 and float32 at pipeline depths 1
                and 2, with --packed_fetch, at 512x512, and through a short
                MJPG video: fps and p50/p99 latency; the forward's device-alone
-               ms per frame (CUDA-graph replays)
+               ms per frame (CUDA-graph replays); every run's instance-norm
+               pair launches, 16 a forward
  12. slow    — `faststyle_tpu_torch.cli.slow_style` for 20 steps on
                chicago.jpg at its native 474x712 (random VGG16), with the Gram
                launch count, twice (bit-equal); 5 steps in bfloat16; 3 steps at 256x256 on the
@@ -128,6 +140,7 @@ from faststyle_tpu_torch.models import transform_net, vgg16
 from faststyle_tpu_torch.ops import layers
 from faststyle_tpu_torch.ops import conv_grad
 from faststyle_tpu_torch.ops.cuda import build, conv_wgrad, gram
+from faststyle_tpu_torch.ops.cuda import instance_norm
 from faststyle_tpu_torch.parallel import data_parallel, dryrun, spatial
 from faststyle_tpu_torch.tools import distill_validation as distill
 from faststyle_tpu_torch.tools import make_training_images
@@ -160,9 +173,9 @@ CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TR
 ]
 # in both dtypes: split (two launches); one launch, mostly off-diagonal tiles
 DETERMINISM_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[3]]
-# csrc/gram.cu and csrc/conv_wgrad.cu (the kernels); csrc/depth_to_space.cc and
-# csrc/tfrecord_io.cc (host)
-BUILDS = ("gram", "conv_wgrad", "depth_to_space", "tfrecord_io")
+# csrc/gram.cu, csrc/conv_wgrad.cu and csrc/instance_norm.cu (the kernels);
+# csrc/depth_to_space.cc and csrc/tfrecord_io.cc (host)
+BUILDS = ("gram", "conv_wgrad", "instance_norm", "depth_to_space", "tfrecord_io")
 # forward: float32 sums over hw in another order than cuBLAS -> 1e-4 of the
 # largest entry; gradient: the same matmul formula in f32 (1e-4), and for
 # bf16 one bf16 rounding of each entry after it (2^-8 ~ 4e-3 -> 1e-2)
@@ -207,12 +220,34 @@ def build_phase() -> None:
         built = dict(zip(BUILDS, pool.map(build.build, BUILDS)))
     gram._lib()  # load and bind
     conv_wgrad._lib()
+    instance_norm._lib()
     inference._host_lib()
     tfrecord._lib()
     for name, (path, seconds) in built.items():
         print(f"built {path.relative_to(REPO)} in {seconds:.2f} s")
     tensor_core_check(built["gram"][0], "gram_")
     tensor_core_check(built["conv_wgrad"][0], "wgrad_", ("tile", "strip", "strip_kn"))
+    print_usage(built["instance_norm"][0], "instance_norm_")
+
+
+def cuobjdump(lib_path: Path, flag: str) -> str:
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), flag, str(lib_path)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+
+
+def print_usage(lib_path: Path, prefix: str, hmma: dict | None = None) -> None:
+    """Each kernel `<prefix>...` in the built library: its registers,
+    static shared and local-memory bytes (spills) from cuobjdump, and its
+    HMMA count when `hmma` has it."""
+    name = None  # cuobjdump prints a function's name, then (maybe on the next line) its usage
+    for line in cuobjdump(lib_path, "-res-usage").splitlines():
+        if m := re.search(r"Function (\S+):", line):
+            name = m.group(1)
+        if (u := re.search(r"REG:(\d+).*?SHARED:(\d+).*?LOCAL:(\d+)", line)) and name and prefix in name:
+            print(f"  {name[name.index(prefix):]}: registers {u[1]}, static shared {u[2]} B, "
+                  f"local (spills) {u[3]} B" + ("" if hmma is None else f", HMMA {hmma.get(name, 0)}"))
+            name = None
 
 
 def tensor_core_check(lib_path: Path, prefix: str, designs=("tile",)) -> None:
@@ -220,25 +255,15 @@ def tensor_core_check(lib_path: Path, prefix: str, designs=("tile",)) -> None:
     library has HMMA (tensor-core) instructions in its SASS, and each design
     has one; prints each kernel's registers and local-memory bytes (spills)
     from cuobjdump."""
-    tool = Path(build.nvcc_path()).parent / "cuobjdump"
-    run = lambda flag: subprocess.run([str(tool), flag, str(lib_path)], capture_output=True,
-                                      text=True, check=True, timeout=300).stdout
     hmma = {}
-    for block in run("-sass").split("Function : ")[1:]:
+    for block in cuobjdump(lib_path, "-sass").split("Function : ")[1:]:
         name, _, body = block.partition("\n")
         hmma[name.strip()] = len(re.findall(r"\bHMMA\.", body))
     tiles = {n: k for n, k in hmma.items() if any(f"{prefix}{d}_kernel" in n for d in designs)}
     missing = [d for d in designs if not any(f"{prefix}{d}_kernel" in n for n in tiles)]
     if missing:
         raise AssertionError(f"no {prefix}kernel of design {missing} in {lib_path.name}")
-    name = None  # cuobjdump prints a function's name, then (maybe on the next line) its usage
-    for line in run("-res-usage").splitlines():
-        if m := re.search(r"Function (\S+):", line):
-            name = m.group(1)
-        if (u := re.search(r"REG:(\d+).*?SHARED:(\d+).*?LOCAL:(\d+)", line)) and name and prefix in name:
-            print(f"  {name[name.index(prefix):]}: registers {u[1]}, static shared {u[2]} B, "
-                  f"local (spills) {u[3]} B, HMMA {hmma.get(name, 0)}")
-            name = None
+    print_usage(lib_path, prefix, hmma)
     if not tiles or min(tiles.values()) == 0:
         raise AssertionError(f"{prefix}{'/'.join(designs)} kernels without HMMA in their SASS: {tiles}")
     print(f"tensor cores: {len(tiles)} {prefix}{'/'.join(designs)} kernels, each with HMMA "
@@ -595,6 +620,149 @@ def wgrad_phase() -> dict:
             "bound_by": "bytes" if f32["bytes"] > f32["ops"] else "operations", "library_ms": f32["cudnn"],
             "library_deterministic_ms": f32["cudnn_det"], "bfloat16_ms": totals[torch.bfloat16]["kernel"],
             "ffma_bound_ms": f32["ffma_ops"], "strip_ms": strip_ms, "tile_ms": tile_ms}
+
+
+# the 16 norms of a 3840x2160 frame as the serving walk meets them: (h, w,
+# c, the epilogue fused there)
+NORM_SHAPES_4K = ([(2240, 3920, 16, "relu"), (1120, 1960, 32, "relu"), (560, 980, 64, "relu")]
+                  + [(560 - 2 * k, 980 - 2 * k, 64, "relu" if k % 2 else "residual") for k in range(1, 11)]
+                  + [(1080, 1920, 32, "relu"), (2160, 3840, 16, "relu"), (2160, 3840, 3, "tanh_u8")])
+# every epilogue at these: (shape, storage offset in elements: 1 breaks the
+# 16-byte alignment, so the kernels take one element a load)
+NORM_RAGGED = [((2, 37, 53, 16), 0), ((3, 21, 11, 3), 0), ((2, 19, 23, 64), 1), ((1, 9, 7, 32), 1)]
+NORM_STATS_RTOL = 1e-5  # moments against float64's
+NORMS_A_FORWARD = len(NORM_SHAPES_4K)  # the pair's launches in one serving forward
+
+
+def norm_inputs(shape, dtype, gen, offset: int = 0):
+    """x like a conv's output (per-channel offsets up to 8 and spreads
+    0.5-4.5), scale, shift, and a skip of x's dtype with 2 more pixels on
+    each side, each from a flat buffer whose [offset:] holds it."""
+    n, h, w, c = shape
+    base = torch.randn(c, generator=gen, device="cuda") * 8
+    spread = 0.5 + 4 * torch.rand(c, generator=gen, device="cuda")
+    x = storage(shape, torch.float32, offset, gen)
+    x = (x[offset:].view(shape) * spread + base).to(dtype)
+    buf = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")
+    buf[offset:].view(shape).copy_(x)
+    skip = storage((n, h + 4, w + 4, c), dtype, offset, gen)[offset:].view(n, h + 4, w + 4, c)
+    scale = 1 + 0.5 * torch.randn(c, generator=gen, device="cuda")
+    shift = torch.randn(c, generator=gen, device="cuda")
+    return buf[offset:].view(shape), scale, shift, skip
+
+
+def norm_check(x, scale, shift, skip, epilogue: str, label: str) -> tuple[float, float, float]:
+    """Raises unless the kernels' moments are within NORM_STATS_RTOL of
+    float64's, their output equals the plain chain's on those moments, and
+    two calls give the same bits; returns (mean error, variance error,
+    share of outputs that differ from the plain version on var_mean's
+    moments)."""
+    skip = skip if epilogue == "residual" else None
+    mean, rstd = instance_norm.stats_cuda(x)
+    x64 = x.double()
+    var64, mean64 = torch.var_mean(x64, dim=(1, 2), correction=0)
+    del x64
+    var = 1.0 / rstd.double() ** 2 - 1e-3
+    m_err = float(((mean - mean64).abs() / (mean64.abs() + var64.sqrt())).max())
+    v_err = float(((var - var64).abs() / var64).max())
+    r_err = float(((rstd - (var64 + 1e-3).rsqrt()).abs() * (var64 + 1e-3).sqrt()).max())
+    if not max(m_err, v_err, r_err) <= NORM_STATS_RTOL:
+        raise AssertionError(f"instance norm {label}: moments off float64's: mean {m_err:.3e}, variance "
+                             f"{v_err:.3e}, rstd {r_err:.3e} (limit {NORM_STATS_RTOL})")
+    out = instance_norm.instance_norm_epilogue(x, scale, shift, epilogue, skip)
+    twin = instance_norm.instance_norm_epilogue_plain(x, scale, shift, epilogue, skip, stats=(mean, rstd))
+    if not torch.equal(out, twin):
+        bad = int((out != twin).sum())
+        raise AssertionError(f"instance norm {label}: {bad} outputs differ from the plain chain on the kernels' "
+                             f"moments")
+    if not torch.equal(out, instance_norm.instance_norm_epilogue(x, scale, shift, epilogue, skip)):
+        raise AssertionError(f"instance norm {label}: two calls on the same input differ")
+    plain = instance_norm.instance_norm_epilogue_plain(x, scale, shift, epilogue, skip)
+    differ = float((out != plain).double().mean())
+    torch.cuda.synchronize()
+    return m_err, v_err, differ
+
+
+def norm_phase() -> dict:
+    phase("norm")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    totals = {dt: dict.fromkeys(("device_ms", "plain_ms", "bound_ms"), 0.0) for dt in (torch.bfloat16, torch.float32)}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for shape, offset in NORM_RAGGED:
+            x, scale, shift, skip = norm_inputs(shape, dtype, gen, offset)
+            for epilogue in instance_norm.EPILOGUES:
+                label = f"{list(shape)} {name} offset {offset} {epilogue}"
+                m_err, v_err, differ = norm_check(x, scale, shift, skip, epilogue, label)
+                print(f"instance norm {label}: vec={instance_norm.vector_width(x, skip)} mean_err={m_err:.2e} "
+                      f"var_err={v_err:.2e} equal on its moments; differs from var_mean's on {differ:.2e}",
+                      flush=True)
+        for h, w, c, epilogue in NORM_SHAPES_4K:
+            shape = (1, h, w, c)
+            x, scale, shift, skip = norm_inputs(shape, dtype, gen)
+            skip = skip if epilogue == "residual" else None
+            label = f"{list(shape)} {name} {epilogue}"
+            m_err, v_err, differ = norm_check(x, scale, shift, skip, epilogue, label)
+            fused = lambda: instance_norm.instance_norm_epilogue(x, scale, shift, epilogue, skip)
+            plain = lambda: instance_norm.instance_norm_epilogue_plain(x, scale, shift, epilogue, skip)
+            k_dev = cuda_time_ms(fused, iters=5, warmup=2, graph=True, replays=4)
+            p_dev = cuda_time_ms(plain, iters=3, warmup=1, graph=True, replays=3)
+            elem = x.element_size()
+            nbytes = x.numel() * (2 * elem + (1 if epilogue == "tanh_u8" else elem) + (elem if skip is not None
+                                                                                     else 0))
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            p = instance_norm._plan_for(x, epilogue, skip)
+            print(f"instance norm {label}: mean_err={m_err:.2e} var_err={v_err:.2e} equal on its moments; differs "
+                  f"from var_mean's on {differ:.2e}; kernel_dev_ms={k_dev:.5f} plain_dev_ms={p_dev:.5f} "
+                  f"bound_ms={b_ms:.5f} (bytes) bound_share={b_ms / k_dev:.3f} plan: vec={p.vec} "
+                  f"splits={p.splits} slab={p.slab} blocks={p.blocks}", flush=True)
+            for key, val in zip(("device_ms", "plain_ms", "bound_ms"), (k_dev, p_dev, b_ms)):
+                totals[dtype][key] += val
+            del x, skip
+        t = totals[dtype]
+        print(f"instance norm, the 16 norms of a 3840x2160 frame in {name}: "
+              + " ".join(f"{k}={v:.5f}" for k, v in t.items()) + f" bound_share={t['bound_ms'] / t['device_ms']:.3f}"
+              + " launches=48 (3 a norm)", flush=True)
+    torch.cuda.empty_cache()
+    frame = frame_fused_against_plain()
+    return {**{k: v for k, v in totals[torch.bfloat16].items()},
+            "float32_device_ms": totals[torch.float32]["device_ms"], **frame}
+
+
+def frame_fused_against_plain() -> dict:
+    """A 3840x2160 uint8 frame through the packed-u8 bf16 Stylizer, as the
+    4K stream serves it: the pair's launches in its first forward (raises
+    unless NORMS_A_FORWARD), device-alone ms with the norms fused and with
+    the plain walk (`engages` refusing every norm), and the two frames'
+    largest difference and share of differing bytes."""
+    params = transform_net.init_params(torch.Generator().manual_seed(SEED), device="cuda")
+    stylizer = inference.Stylizer(params=params, compute_dtype=torch.bfloat16, packed_input=True,
+                                  packed_output=True, device="cuda")
+    img = np.random.default_rng(SEED).integers(0, 256, (1, 2160, 3840, 3), dtype=np.uint8)
+    packed = torch.from_numpy(inference.pack_u8_host(img)).cuda()
+    fwd = lambda: stylizer.stylize_device(packed, (2160, 3840))
+    instance_norm.launches = 0
+    fused_out = fwd()
+    launches = instance_norm.launches
+    print(f"4K packed-u8 bf16 Stylizer.stylize_device: instance_norm launches {launches} in one forward (need "
+          f"{NORMS_A_FORWARD})", flush=True)
+    if launches != NORMS_A_FORWARD:
+        raise AssertionError(f"the 4K serving forward launched the instance-norm pair {launches} times, expected "
+                             f"{NORMS_A_FORWARD}")
+    fused_ms = cuda_time_ms(fwd, iters=3, warmup=1, graph=True, replays=3)
+    engages = instance_norm.engages
+    instance_norm.engages = lambda *_: False
+    try:
+        plain_out, plain_ms = fwd(), cuda_time_ms(fwd, iters=3, warmup=1, graph=True, replays=3)
+    finally:
+        instance_norm.engages = engages
+    diff = (fused_out.int() - plain_out.int()).abs()
+    out = {"frame_launches": launches, "frame_fused_ms": fused_ms, "frame_plain_ms": plain_ms, "frame_max_diff": int(diff.max()),
+           "frame_differ_share": float((diff > 0).double().mean())}
+    print(f"4K packed-u8 bf16 frame (random weights), device alone: fused norms {fused_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; the two frames differ by at most {out['frame_max_diff']} counts in "
+          f"{out['frame_differ_share']:.2e} of their bytes", flush=True)
+    return out
 
 
 def write_inputs(root: Path) -> tuple[Path, Path]:
@@ -1293,16 +1461,33 @@ def stream_reading(r: dict) -> str:
     return f"{r['frames']} frames, {r['fps']:.3f} fps, p50 {ms(r['p50_ms'])}, p99 {ms(r['p99_ms'])}"
 
 
-def stream_phase() -> None:
+def norm_launches(check: "Checks", what: str, forwards: int, counts: dict) -> None:
+    """Checks that the serving run just made launched the instance-norm pair
+    16 times a forward (the counter was set to 0 before it), and adds its
+    launches and forwards to `counts`."""
+    got, want = instance_norm.launches, NORMS_A_FORWARD * forwards
+    check(got == want, f"{what}: instance_norm launches {got} (need {want}, {NORMS_A_FORWARD} for each of "
+                       f"{forwards} forwards)")
+    counts["launches"] += got
+    counts["forwards"] += forwards
+
+
+def stream_phase() -> dict:
+    """The webcam CLI's streams and the Stylizer's forwards on the device;
+    returns the instance-norm pair's launches and the forwards that made
+    them."""
     phase("stream")
     check = Checks("stream")
+    counts = {"launches": 0, "forwards": 0}
     base = ["--model_path", str(STARRY), "--no_display", "--report_latency"]
     for w, h, precision, depth, packed in STREAMS:
         args = base + ["--num_synthetic_frames", str(STREAM_FRAMES), "--resolution", str(w), str(h),
                        "--precision", precision, "--pipeline_depth", str(depth)] + (["--packed_fetch"] if packed else [])
+        instance_norm.launches = 0
         r = cli_webcam.main(args)
-        check(r["frames"] == STREAM_FRAMES and r["fps"] > 0 and r["p99_ms"] is not None,
-              f"stream {w}x{h} {precision} depth {depth}{' packed' if packed else ''}: {stream_reading(r)}")
+        what = f"stream {w}x{h} {precision} depth {depth}{' packed' if packed else ''}"
+        check(r["frames"] == STREAM_FRAMES and r["fps"] > 0 and r["p99_ms"] is not None, f"{what}: {stream_reading(r)}")
+        norm_launches(check, what, r["frames"] + 1, counts)  # the frames and the warm-up's one
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
         import cv2
 
@@ -1313,11 +1498,13 @@ def stream_phase() -> None:
         for f in frames:
             writer.write(f)
         writer.release()
+        instance_norm.launches = 0
         r = cli_webcam.main(base + ["--video_path", str(root / "in.avi"), "--max_frames", "30",
                                     "--output_path", str(root / "out.avi")])
         size = (root / "out.avi").stat().st_size if (root / "out.avi").exists() else 0
         check(r["frames"] == 30 and size > 0, f"video {fw}x{fh} MJPG through --video_path --max_frames 30: "
                                               f"{stream_reading(r)}, output {size} bytes")
+        norm_launches(check, f"video {fw}x{fh}", r["frames"] + 1, counts)
     # the forward alone on the device: uint8 frame in, uint8 (or packed) out
     for w, h, precision, packed in ((1920, 1080, "bfloat16", False), (1920, 1080, "float32", False),
                                     (1920, 1080, "bfloat16", True), (1920, 1080, "float32", True),
@@ -1327,11 +1514,16 @@ def stream_phase() -> None:
         frame = next(cli_webcam.synthetic_frames(1, h, w))[None]
         x = torch.from_numpy(inference.pack_u8_host(frame) if packed else frame).cuda()
         fn = (lambda: s.stylize_device(x, (h, w))) if packed else (lambda: s.stylize_device(x))
+        instance_norm.launches = 0
         dev = cuda_time_ms(fn, iters=10, graph=True, replays=3)
         eager = cuda_time_ms(fn, iters=10)
-        print(f"forward {w}x{h} {precision}{' packed' if packed else ''}: device-alone {dev:.5f} ms/frame, "
-              f"eager {eager:.5f} ms/frame", flush=True)
+        what = f"forward {w}x{h} {precision}{' packed' if packed else ''}"
+        print(f"{what}: device-alone {dev:.5f} ms/frame, eager {eager:.5f} ms/frame", flush=True)
+        norm_launches(check, what, 2 * (3 + 10), counts)  # each timing's 3 warm-up and 10 timed calls
     check.done()
+    print(f"instance_norm launches on the stream's serving paths: {counts['launches']} in {counts['forwards']} "
+          f"forwards", flush=True)
+    return counts
 
 
 def slow_style_phase() -> dict:
@@ -1592,14 +1784,16 @@ def parallel_phase(smi: str) -> dict:
         if h == 2160:
             fn = s._fn(h, w)
             # the same windows walked one after another by this thread with
-            # the plain per-window IN: what the shard threads add beyond it
+            # the plain per-window IN (taps=True keeps every norm in plain
+            # torch): what the shard threads add beyond it
             _, win, starts = spatial.windows(h, n)
             with torch.inference_mode():
                 padded = layers.reflect_pad(x[None].to(dtype or torch.float32), 40)
                 ms = turns_ms({"single": lambda: transform_net.apply(p, x[None], method, compute_dtype=dtype),
                                "sharded": lambda: fn(x)})
                 ms.update(turns_ms({"sharded": lambda: fn(x), "windows": lambda: [
-                    transform_net._walk_padded(p, padded[:, s0 : s0 + win], method) for s0 in starts]}))
+                    transform_net._walk_padded(p, padded[:, s0 : s0 + win], method, taps=True)[0]
+                    for s0 in starts]}))
             readings[name] = ms
             print(f"  reading, {name} {h}x{w} on {card}: single card {ms['single']:.3f} ms/frame, {n}-way on the one "
                   f"card {ms['sharded']:.3f} ms/frame, its {n} windows walked in one thread {ms['windows']:.3f} ms "
@@ -1700,7 +1894,8 @@ def main(argv: list) -> None:
     smi = device_phase()
     build_phase()
     if argv:
-        chosen = {"kernel": kernel_phase, "wgrad": wgrad_phase, "repro": repro_phase, "slice": slice_phase,
+        chosen = {"kernel": kernel_phase, "wgrad": wgrad_phase, "norm": norm_phase, "repro": repro_phase,
+                  "slice": slice_phase,
                   "records": records_phase, "distill": distill_phase, "serve": serve_phase,
                   "parallel": lambda: parallel_phase(smi), "stream": stream_phase, "slow": slow_style_phase,
                   "bench": bench_phase}
@@ -1714,13 +1909,14 @@ def main(argv: list) -> None:
         return
     k = kernel_phase()
     w = wgrad_phase()
+    nm = norm_phase()
     repro_phase()
     s = slice_phase()
     r = records_phase()
     d = distill_phase()
     serve_phase()
     p = parallel_phase(smi)
-    stream_phase()
+    st = stream_phase()
     ss = slow_style_phase()
     b = bench_phase()
     print(f"gram launches: {s['launches']} on the train slice, {r['launches']} training from TFRecords, "
@@ -1729,6 +1925,8 @@ def main(argv: list) -> None:
     print(f"conv_wgrad launches: {s['wgrad_launches']} on the train slice, {r['wgrad_launches']} training from "
           f"TFRecords, {d['wgrad_launches']} distilling, {p['wgrad_launches']} in parallel.dryrun, "
           f"{b['wgrad_launches']} in the bench")
+    print(f"instance_norm launches: {nm['frame_launches']} in the 4K packed-u8 bf16 forward, {st['launches']} in "
+          f"the stream phase's {st['forwards']} forwards")
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
@@ -1765,6 +1963,21 @@ def main(argv: list) -> None:
         "ffma_bound_ms": w["ffma_bound_ms"],
         "strip_ms": w["strip_ms"],
         "tile_ms": w["tile_ms"],
+    }, {
+        # no TPU kernel stands behind it: the JAX package's instance norm,
+        # which XLA compiles
+        "name": "instance_norm",
+        "route": "cuda",
+        "source": "faststyle_tpu_torch/csrc/instance_norm.cu",
+        "replaces": "faststyle_tpu/ops/layers.py:227",
+        "launches": nm["frame_launches"] + st["launches"],
+        "ms": nm["device_ms"],
+        "plain_ms": nm["plain_ms"],
+        "bound_ms": nm["bound_ms"],
+        "bound_by": "bytes",
+        "float32_ms": nm["float32_device_ms"],
+        "frame_fused_ms": nm["frame_fused_ms"],
+        "frame_plain_ms": nm["frame_plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -18,24 +18,27 @@ block and variable names. The JAX package's packed space-to-depth layout is
 a TPU matrix-unit trick that computes the same function, so its walk is not
 ported; its packed-u8 I/O contract is (`apply_packed`): the naive walk
 between a device-side unpack of host-packed input and a pack of the uint8
-output.
+output. On the card, with autograd recording nothing (serving), each norm
+runs as a kernel pair with its relu, residual add or tanh and uint8 clip
+fused (`ops/cuda/instance_norm`); training and `apply_with_features` keep
+every norm in plain torch.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Generator
+from typing import Dict, Generator, NamedTuple
 
 import torch
 from torch import nn
 
 from faststyle_tpu_torch.ops import layers as L
+from faststyle_tpu_torch.ops.cuda import instance_norm as IN
+from faststyle_tpu_torch.utils import profiling
 
 Params = Dict[str, Dict[str, torch.Tensor]]
-# a walk's generator: yields (x, scale, shift) at each instance norm, is sent
-# the normalized x, returns (output, taps)
-Walk = Generator[
-    tuple[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor, tuple[torch.Tensor, Dict[str, torch.Tensor]]
-]
+# a walk's generator: yields a Norm at each instance norm, is sent the
+# tensor after it and its epilogue, returns the output
+Walk = Generator["Norm", torch.Tensor, torch.Tensor]
 
 # (kernel, cin, cout, stride) per block — the instance-norm "halved" widths
 _INIT_SPECS = [(9, 3, 16, 1), (3, 16, 32, 2), (3, 32, 64, 2)]
@@ -125,6 +128,14 @@ def conv_shapes(h: int, w: int) -> list[tuple[int, int, int, int, int, int, int,
     return out
 
 
+def _padded_input(x: torch.Tensor, compute_dtype: torch.dtype | None) -> torch.Tensor:
+    """x in the walk's dtype (uint8 in: float32, unless `compute_dtype`),
+    reflect-padded."""
+    if compute_dtype is not None or x.dtype == torch.uint8:
+        x = x.to(compute_dtype if compute_dtype is not None else torch.float32)
+    return L.reflect_pad(x, _PAD)
+
+
 def apply_with_features(
     params: Params,
     x: torch.Tensor,
@@ -141,40 +152,49 @@ def apply_with_features(
     gives float32 out here (apply's output_dtype does the clip).
     `fused_upsample` runs both upsample variants in their exact phase
     (sub-pixel) forms, forward convolutions only; False runs the literal
-    resize-then-conv or transposed convolutions, the oracles of those."""
+    resize-then-conv or transposed convolutions, the oracles of those.
+    Every norm runs in plain torch: the taps are its outputs."""
     if upsample_method not in UPSAMPLE_METHODS:
         raise ValueError(f"upsample_method must be one of {UPSAMPLE_METHODS}")
-    orig_dtype = x.dtype
-    if compute_dtype is not None or orig_dtype == torch.uint8:
-        x = x.to(compute_dtype if compute_dtype is not None else torch.float32)
-    y, feats = _walk_padded(params, L.reflect_pad(x, _PAD), upsample_method, fused_upsample)
-    if orig_dtype != torch.uint8:
-        y = y.to(orig_dtype)
+    y, feats = _walk_padded(params, _padded_input(x, compute_dtype), upsample_method, fused_upsample, taps=True)
+    if x.dtype != torch.uint8:
+        y = y.to(x.dtype)
     return y, feats
 
 
-def _walk_steps(params: Params, h: torch.Tensor, upsample_method: str, fused_upsample: bool = True) -> Walk:
-    """The walk after the reflect pad, as a generator: it yields
-    (x, scale, shift) at each of the 16 instance norms, in walk order, takes
-    the normalized tensor back by `send`, and returns the scaled-tanh output
-    and the taps. `_walk_padded` drives it with one norm; `parallel.spatial`
-    drives one per row window in lockstep, with statistics that span the
-    whole frame."""
-    feats: Dict[str, torch.Tensor] = {}
+class Norm(NamedTuple):
+    """One of the walk's 16 instance norms and what follows it: `then` is an
+    epilogue of `ops/cuda/instance_norm` ("relu"; "residual", adding `skip`
+    cropped by 2 on each side of H and W; "tanh" or "tanh_u8" after the
+    last). `tap` names the feature apply_with_features returns for it: the
+    normalized tensor, or the sum after a residual."""
+
+    x: torch.Tensor
+    scale: torch.Tensor
+    shift: torch.Tensor
+    then: str
+    skip: torch.Tensor | None = None
+    tap: str | None = None
+
+
+def _walk_steps(
+    params: Params, h: torch.Tensor, upsample_method: str, fused_upsample: bool = True, out_u8: bool = False
+) -> Walk:
+    """The walk after the reflect pad, as a generator: it yields a `Norm` at
+    each of the 16 instance norms, in walk order, takes back by `send` the
+    tensor after the norm and what follows it, and returns the last one,
+    the output (scaled tanh, or uint8 with `out_u8`). `_walk_padded` drives
+    it with one norm; `parallel.spatial` drives one per row window in
+    lockstep, with statistics that span the whole frame."""
     for i, (_k, _ci, _co, s) in enumerate(_INIT_SPECS):
         blk = params[f"initconv_{i}"]
-        h = yield L.conv2d(h, blk["W"], stride=s), blk["INscale"], blk["INshift"]
-        feats[f"init_{i}"] = h
-        h = L.relu(h)
+        h = yield Norm(L.conv2d(h, blk["W"], stride=s), blk["INscale"], blk["INshift"], "relu", tap=f"init_{i}")
 
     for i in range(_NUM_RESBLOCKS):
         blk = params[f"resblock_{i}"]
-        r = L.conv2d(h, blk["W1"], padding="VALID")
-        r = L.relu((yield r, blk["INscale1"], blk["INshift1"]))
+        r = yield Norm(L.conv2d(h, blk["W1"], padding="VALID"), blk["INscale1"], blk["INshift1"], "relu")
         r = L.conv2d(r, blk["W2"], padding="VALID")
-        r = yield r, blk["INscale2"], blk["INshift2"]
-        h = r + h[:, 2:-2, 2:-2, :]
-        feats[f"res_{i}"] = h
+        h = yield Norm(r, blk["INscale2"], blk["INshift2"], "residual", h, f"res_{i}")
 
     for i in range(2):
         blk = params[f"upsample_{i}"]
@@ -184,32 +204,48 @@ def _walk_steps(params: Params, h: torch.Tensor, upsample_method: str, fused_ups
             u = L.upsample_conv(h, blk["W"])
         else:
             u = L.upsample_conv_reference(h, blk["W"])
-        u = yield u, blk["INscale"], blk["INshift"]
-        feats[f"up_{i}"] = u
-        h = L.relu(u)
+        h = yield Norm(u, blk["INscale"], blk["INshift"], "relu", tap=f"up_{i}")
 
     blk = params["upsample_2"]
     if upsample_method == "deconv":
         h = L.deconv_same_s1(h, blk["W"]) if fused_upsample else L.transposed_conv2d(h, blk["W"], stride=1)
     else:
         h = L.conv2d(h, blk["W"])
-    h = yield h, blk["INscale"], blk["INshift"]
-    feats["pre_tanh"] = h
-    return L.scaled_tanh(h), feats
+    return (yield Norm(h, blk["INscale"], blk["INshift"], "tanh_u8" if out_u8 else "tanh", tap="pre_tanh"))
 
 
 def _walk_padded(
-    params: Params, h: torch.Tensor, upsample_method: str, fused_upsample: bool = True
+    params: Params,
+    h: torch.Tensor,
+    upsample_method: str,
+    fused_upsample: bool = True,
+    *,
+    taps: bool = False,
+    out_u8: bool = False,
 ) -> tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The walk after the reflect pad: the net on an already padded NHWC
-    tensor in its compute dtype; returns the scaled-tanh output and taps."""
-    steps = _walk_steps(params, h, upsample_method, fused_upsample)
+    tensor in its compute dtype; returns the output (scaled tanh, uint8
+    with `out_u8`) and, with `taps`, the taps. Without taps, a norm whose
+    activation the kernels take (`instance_norm.engages`: on the card,
+    autograd recording nothing) runs as the kernel pair with what follows
+    it fused, inside a `norm.fused` span; every other norm runs in plain
+    torch."""
+    steps = _walk_steps(params, h, upsample_method, fused_upsample, out_u8)
+    feats: Dict[str, torch.Tensor] = {}
     try:
-        x = next(steps)
+        step = next(steps)
         while True:
-            x = steps.send(L.instance_norm(*x))
+            if not taps and IN.engages(step.x, step.scale, step.shift, step.skip):
+                with profiling.span("norm.fused"):
+                    out = IN.instance_norm_epilogue(step.x, step.scale, step.shift, step.then, step.skip)
+            else:
+                y = L.instance_norm(step.x, step.scale, step.shift)
+                out = IN.epilogue_plain(y, step.then, step.skip)
+                if taps and step.tap:
+                    feats[step.tap] = out if step.then == "residual" else y
+            step = steps.send(out)
     except StopIteration as done:
-        return done.value
+        return done.value, feats
 
 
 def apply(
@@ -226,14 +262,11 @@ def apply(
     float input to the same float."""
     if output_dtype not in (None, torch.uint8):
         raise ValueError(f"output_dtype must be None or torch.uint8, got {output_dtype}")
-    if output_dtype is None and x.dtype == torch.uint8:
-        output_dtype = torch.uint8
-    y, _ = apply_with_features(
-        params, x, upsample_method, fused_upsample=fused_upsample, compute_dtype=compute_dtype
-    )
-    if output_dtype == torch.uint8:
-        return y.clamp(0, 255).to(torch.uint8)
-    return y
+    if upsample_method not in UPSAMPLE_METHODS:
+        raise ValueError(f"upsample_method must be one of {UPSAMPLE_METHODS}")
+    out_u8 = output_dtype == torch.uint8 or x.dtype == torch.uint8
+    y, _ = _walk_padded(params, _padded_input(x, compute_dtype), upsample_method, fused_upsample, out_u8=out_u8)
+    return y if out_u8 else y.to(x.dtype)
 
 
 def unpack_u8(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -298,7 +331,7 @@ def apply_packed(
         h, w = input_hw
         dtype = compute_dtype if compute_dtype is not None else torch.float32
         padded = unpack_u8(x, h + 2 * _PAD, w + 2 * _PAD).to(dtype).contiguous()
-        y = _walk_padded(params, padded, upsample_method)[0].clamp(0, 255).to(torch.uint8)
+        y = _walk_padded(params, padded, upsample_method, out_u8=True)[0]
     return pack_u8(y) if output_layout == "packed_u8" else y
 
 

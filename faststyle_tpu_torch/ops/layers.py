@@ -194,13 +194,23 @@ def deconv_same_s1(x: torch.Tensor, w_iohw: torch.Tensor) -> torch.Tensor:
 
 
 def instance_norm(
-    x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, eps: float = 1e-3
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    shift: torch.Tensor,
+    eps: float = 1e-3,
+    stats: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Instance norm over H, W with a per-channel affine: biased variance,
-    eps inside the rsqrt, moments in float32 whatever the activation dtype."""
+    eps inside the rsqrt, moments in float32 whatever the activation dtype.
+    `stats` = (mean, rsqrt(var + eps)), each [n, c] float32, replaces the
+    moments with given ones in the same chain."""
     xf = x.float()
-    var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
-    out = scale.float() * ((xf - mean) * torch.rsqrt(var + eps)) + shift.float()
+    if stats is None:
+        var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
+        rstd = torch.rsqrt(var + eps)
+    else:
+        mean, rstd = (s[:, None, None, :] for s in stats)
+    out = scale.float() * ((xf - mean) * rstd) + shift.float()
     return out.to(x.dtype)
 
 

@@ -43,6 +43,7 @@ import torch
 from faststyle_tpu_torch import inference
 from faststyle_tpu_torch.models import transform_net
 from faststyle_tpu_torch.ops import layers as L
+from faststyle_tpu_torch.ops.cuda import instance_norm
 from faststyle_tpu_torch.parallel.mesh import serving_devices
 
 # one-sided reach of a window edge's wrong values into the output, in
@@ -77,13 +78,13 @@ class _Done(NamedTuple):
     y: torch.Tensor
 
 
-def _resume(walk, normed: torch.Tensor):
-    """Send a walk its normalized tensor: the walk's next (x, scale, shift),
-    or `_Done` once it has run to its output."""
+def _resume(walk, out: torch.Tensor):
+    """Send a walk its tensor after the norm and its epilogue: the walk's
+    next `Norm`, or `_Done` once it has run to its output."""
     try:
-        return walk.send(normed)
+        return walk.send(out)
     except StopIteration as done:
-        return _Done(done.value[0])
+        return _Done(done.value)
 
 
 def _sum_in_order(parts: List[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -95,16 +96,16 @@ def _sum_in_order(parts: List[torch.Tensor], device: torch.device) -> torch.Tens
 
 
 def _spatial_norms(
-    pending: List[tuple], call: int, starts: List[int], crop: int, schedule, first: torch.device
+    pending: List[transform_net.Norm], call: int, starts: List[int], crop: int, schedule, first: torch.device
 ) -> List[torch.Tensor]:
     """IN call `call` of every shard: moments over the rows each shard owns
-    at that layer, summed over the shards, applied to every window row.
-    `pending[i]` is shard i's (x, scale, shift); `crop` is how many padded
-    rows a window is shorter than the frame."""
+    at that layer, summed over the shards, applied to every window row,
+    then the norm's epilogue. `pending[i]` is shard i's `Norm`; `crop` is
+    how many padded rows a window is shorter than the frame."""
     global_lh, div = schedule[call]
     n = len(pending)
     owned, xfs = [], []
-    for i, (x, _, _) in enumerate(pending):
+    for i, x in enumerate(step.x for step in pending):
         # the window's rows at this layer have global ids offset ..
         # offset+lh-1: a VALID conv crops window and frame alike
         offset, lh = starts[i] // div, x.shape[1]
@@ -116,14 +117,14 @@ def _spatial_norms(
         xf = x.float()
         xfs.append(xf)
         owned.append(xf[:, g0 - offset : g1 - offset])
-    count = float(global_lh * pending[0][0].shape[2])  # the width is never split
+    count = float(global_lh * pending[0].x.shape[2])  # the width is never split
     mean = _sum_in_order([o.sum(dim=(1, 2), keepdim=True) for o in owned], first) / count
     means = [mean.to(o.device) for o in owned]
     var = _sum_in_order([(o - m).square().sum(dim=(1, 2), keepdim=True) for o, m in zip(owned, means)], first) / count
     outs = []
-    for (x, scale, shift), xf, m in zip(pending, xfs, means):
-        out = scale.float() * ((xf - m) * torch.rsqrt(var.to(x.device) + _EPS)) + shift.float()
-        outs.append(out.to(x.dtype))
+    for step, xf, m in zip(pending, xfs, means):
+        out = step.scale.float() * ((xf - m) * torch.rsqrt(var.to(xf.device) + _EPS)) + step.shift.float()
+        outs.append(instance_norm.epilogue_plain(out.to(step.x.dtype), step.then, step.skip))
     return outs
 
 
@@ -196,8 +197,8 @@ def spatial_stylize_fn(
             for call in range(len(schedule)):
                 if any(isinstance(p, _Done) for p in pending):
                     raise RuntimeError(f"a walk ended after {call} IN calls; the schedule has {len(schedule)}")
-                normed = _spatial_norms(pending, call, starts, hp - win, schedule, devices[0])
-                pending = [_resume(walk, t) for walk, t in zip(walks, normed)]
+                outs = _spatial_norms(pending, call, starts, hp - win, schedule, devices[0])
+                pending = [_resume(walk, t) for walk, t in zip(walks, outs)]
             if not all(isinstance(p, _Done) for p in pending):
                 raise RuntimeError(f"a walk has more IN calls than the schedule's {len(schedule)}")
             own = [i * hs - s0 for i, s0 in enumerate(starts)]

@@ -245,14 +245,16 @@ def held_out_ssim(student: Params, teacher: Params, compute_dtype=None, upsample
                   device: str | torch.device = "cuda", out_dir: Optional[Path] = None) -> Dict[str, float]:
     """Student-vs-teacher SSIM on chicago at 256 (crop), 512 and native
     474x712, both nets at `compute_dtype`; the native pair is written to
-    out_dir when given."""
+    out_dir when given. Both run every norm in plain torch
+    (`apply_with_features`), so the scores do not move with the serving
+    path's kernels."""
     device = resolve_device(device)
     scores = {}
     for tag, name in (("256", "chicago_crop256.png"), ("512", "chicago_512.png"), ("native", "chicago.jpg")):
         x = torch.from_numpy(image_io.imread(REPO / "tests/assets" / name).astype(np.float32))[None].to(device)
         with torch.no_grad():
-            t, s = (np.clip(transform_net.apply(p, x, upsample_method, compute_dtype=compute_dtype)[0].float()
-                            .cpu().numpy(), 0, 255) for p in (teacher, student))
+            t, s = (np.clip(transform_net.apply_with_features(p, x, upsample_method, compute_dtype=compute_dtype)[0][0]
+                            .float().cpu().numpy(), 0, 255) for p in (teacher, student))
         scores[tag] = ssim(s, t)
         print(f"held-out chicago@{tag}: student-vs-teacher SSIM {scores[tag]:.4f}", flush=True)
         if tag == "native" and out_dir is not None:

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from faststyle_tpu_torch.inference import _as_torch_params, load_params_numpy  # noqa: E402
 from faststyle_tpu_torch.models import transform_net  # noqa: E402
 from faststyle_tpu_torch.ops import layers as L  # noqa: E402
+from faststyle_tpu_torch.ops.cuda import instance_norm  # noqa: E402
 from faststyle_tpu_torch.parallel import spatial  # noqa: E402
 from faststyle_tpu_torch.parallel.spatial import SpatialStylizer, spatial_stylize_fn  # noqa: E402
 
@@ -94,7 +95,7 @@ def test_uint8_and_float_input_agree_whichever_shard_count(starry, h):
 
 def test_the_walk_yields_its_16_instance_norms_in_schedule_order(starry):
     """The walk stops at each of the 16 instance norms; sent the plain norm
-    it is bit-identical with apply, and the extents follow
+    and its epilogue it is bit-identical with apply, and the extents follow
     _in_layer_schedule."""
     p = _as_torch_params(starry, torch.device("cpu"))
     h, w = 96, 40
@@ -105,10 +106,10 @@ def test_the_walk_yields_its_16_instance_norms_in_schedule_order(starry):
         try:
             t = next(steps)
             while True:
-                seen.append(t[0].shape[1])
-                t = steps.send(L.instance_norm(*t))
+                seen.append(t.x.shape[1])
+                t = steps.send(instance_norm.epilogue_plain(L.instance_norm(t.x, t.scale, t.shift), t.then, t.skip))
         except StopIteration as done:
-            got, _ = done.value
+            got = done.value
         want = transform_net.apply(p, x)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert seen == [extent for extent, _ in spatial._in_layer_schedule(h)]
