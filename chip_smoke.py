@@ -39,7 +39,16 @@ Phases, each raising on failure (the script then exits non-zero):
                element in bf16, 12 in float32) and the plain version's;
                a 4K packed-u8 bf16 frame's pair launches (16), its
                device-alone ms with the norms fused and plain, and how far
-               the two frames differ
+               the two frames differ. AdaIN's content norm: C = 512 at a
+               4K frame's relu4_1 (270x480) and ragged shapes, bf16 and
+               float32, eps 1e-5, the unbiased variance, a style's sigma
+               and mean as the affine, held the same way (and an
+               unaligned tensor against the plain version); a 4K
+               packed-u8 bf16 AdaIN frame (seeded weights, the candy
+               style) against the float32 plain reference
+               (faststyle_tpu_torch/reference/adain.py): one pair launch,
+               its device-alone ms, the mean and worst difference in
+               counts and the share of clipped pixels
   5. repro   — with no determinism flag set: two default `cli.train` 3-step
                runs in fresh processes, float32 and bfloat16, bit-equal;
                every convolution of the f32 and bf16 steps run twice
@@ -631,6 +640,11 @@ NORM_SHAPES_4K = ([(2240, 3920, 16, "relu"), (1120, 1960, 32, "relu"), (560, 980
 # 16-byte alignment, so the kernels take one element a load)
 NORM_RAGGED = [((2, 37, 53, 16), 0), ((3, 21, 11, 3), 0), ((2, 19, 23, 64), 1), ((1, 9, 7, 32), 1)]
 NORM_STATS_RTOL = 1e-5  # moments against float64's
+# AdaIN's content norm at a 3840x2160 frame's relu4_1, and ragged shapes
+# (shape, storage offset); an offset of 1 goes through the entry point's
+# aligned copy (C = 512 needs whole 16-byte vectors)
+ADAIN_NORM_4K = (1, 270, 480, 512)
+ADAIN_NORM_RAGGED = [((2, 7, 9, 512), 0), ((1, 3, 5, 512), 0), ((1, 17, 23, 512), 1)]
 NORMS_A_FORWARD = len(NORM_SHAPES_4K)  # the pair's launches in one serving forward
 
 
@@ -651,33 +665,35 @@ def norm_inputs(shape, dtype, gen, offset: int = 0):
     return buf[offset:].view(shape), scale, shift, skip
 
 
-def norm_check(x, scale, shift, skip, epilogue: str, label: str) -> tuple[float, float, float]:
+def norm_check(x, scale, shift, skip, epilogue: str, label: str, eps: float = 1e-3,
+               correction: int = 0) -> tuple[float, float, float]:
     """Raises unless the kernels' moments are within NORM_STATS_RTOL of
     float64's, their output equals the plain chain's on those moments, and
     two calls give the same bits; returns (mean error, variance error,
     share of outputs that differ from the plain version on var_mean's
     moments)."""
     skip = skip if epilogue == "residual" else None
-    mean, rstd = instance_norm.stats_cuda(x)
+    mean, rstd = instance_norm.stats_cuda(x, None, eps, correction)
     x64 = x.double()
-    var64, mean64 = torch.var_mean(x64, dim=(1, 2), correction=0)
+    var64, mean64 = torch.var_mean(x64, dim=(1, 2), correction=correction)
     del x64
-    var = 1.0 / rstd.double() ** 2 - 1e-3
+    var = 1.0 / rstd.double() ** 2 - eps
     m_err = float(((mean - mean64).abs() / (mean64.abs() + var64.sqrt())).max())
     v_err = float(((var - var64).abs() / var64).max())
-    r_err = float(((rstd - (var64 + 1e-3).rsqrt()).abs() * (var64 + 1e-3).sqrt()).max())
+    r_err = float(((rstd - (var64 + eps).rsqrt()).abs() * (var64 + eps).sqrt()).max())
     if not max(m_err, v_err, r_err) <= NORM_STATS_RTOL:
         raise AssertionError(f"instance norm {label}: moments off float64's: mean {m_err:.3e}, variance "
                              f"{v_err:.3e}, rstd {r_err:.3e} (limit {NORM_STATS_RTOL})")
-    out = instance_norm.instance_norm_epilogue(x, scale, shift, epilogue, skip)
-    twin = instance_norm.instance_norm_epilogue_plain(x, scale, shift, epilogue, skip, stats=(mean, rstd))
+    args = (x, scale, shift, epilogue, skip)
+    out = instance_norm.instance_norm_epilogue(*args, eps=eps, correction=correction)
+    twin = instance_norm.instance_norm_epilogue_plain(*args, stats=(mean, rstd), eps=eps, correction=correction)
     if not torch.equal(out, twin):
         bad = int((out != twin).sum())
         raise AssertionError(f"instance norm {label}: {bad} outputs differ from the plain chain on the kernels' "
                              f"moments")
-    if not torch.equal(out, instance_norm.instance_norm_epilogue(x, scale, shift, epilogue, skip)):
+    if not torch.equal(out, instance_norm.instance_norm_epilogue(*args, eps=eps, correction=correction)):
         raise AssertionError(f"instance norm {label}: two calls on the same input differ")
-    plain = instance_norm.instance_norm_epilogue_plain(x, scale, shift, epilogue, skip)
+    plain = instance_norm.instance_norm_epilogue_plain(*args, eps=eps, correction=correction)
     differ = float((out != plain).double().mean())
     torch.cuda.synchronize()
     return m_err, v_err, differ
@@ -725,8 +741,122 @@ def norm_phase() -> dict:
               + " launches=48 (3 a norm)", flush=True)
     torch.cuda.empty_cache()
     frame = frame_fused_against_plain()
+    torch.cuda.empty_cache()
+    adain_norms = adain_norm_checks(gen)
+    adain_out = adain_frame_against_reference()
     return {**{k: v for k, v in totals[torch.bfloat16].items()},
-            "float32_device_ms": totals[torch.float32]["device_ms"], **frame}
+            "float32_device_ms": totals[torch.float32]["device_ms"], **frame, **adain_norms, **adain_out}
+
+
+def style_affine(c: int, gen):
+    """A style's sigma (positive, 0.2 to 4) and mean, [c] float32 each."""
+    return 0.2 + 3.8 * torch.rand(c, generator=gen, device="cuda"), 2 * torch.randn(c, generator=gen, device="cuda")
+
+
+def adain_norm_checks(gen) -> dict:
+    """AdaIN's content norm (C = 512, eps 1e-5, the unbiased variance, the
+    style's sigma and mean as scale and shift, no epilogue): the 4K relu4_1
+    shape, timed beside its byte bound and the plain version, and ragged
+    shapes, in both dtypes; an unaligned tensor (the entry point's aligned
+    copy) against the plain version, whose moments it shares in float64 to
+    1e-5."""
+    eps, corr = 1e-5, 1
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for shape, offset in ADAIN_NORM_RAGGED + [(ADAIN_NORM_4K, 0)]:
+            x, _, _, _ = norm_inputs(shape, dtype, gen, offset)
+            sigma, mu = style_affine(shape[-1], gen)
+            label = f"AdaIN {list(shape)} {name} offset {offset}"
+            if offset:
+                fused = instance_norm.instance_norm_epilogue(x, sigma, mu, "none", eps=eps, correction=corr)
+                plain = instance_norm.instance_norm_epilogue_plain(x, sigma, mu, "none", eps=eps, correction=corr)
+                err = float(((fused.float() - plain.float()).abs() / (plain.float().abs() + sigma)).max())
+                print(f"instance norm {label}: vec={instance_norm.vector_width(x, None)} (an aligned copy) against "
+                      f"the plain version: worst |diff| / (|y| + sigma) {err:.2e}", flush=True)
+                if not err <= (1e-2 if dtype == torch.bfloat16 else 1e-5):
+                    raise AssertionError(f"instance norm {label}: off the plain version by {err:.3e}")
+                continue
+            m_err, v_err, differ = norm_check(x, sigma, mu, None, "none", label, eps, corr)
+            line = (f"instance norm {label}: vec={instance_norm.vector_width(x, None)} mean_err={m_err:.2e} "
+                    f"var_err={v_err:.2e} equal on its moments; differs from var_mean's on {differ:.2e}")
+            if shape == ADAIN_NORM_4K:
+                fused = lambda: instance_norm.instance_norm_epilogue(x, sigma, mu, "none", eps=eps, correction=corr)
+                plain = lambda: instance_norm.instance_norm_epilogue_plain(x, sigma, mu, "none", eps=eps,
+                                                                           correction=corr)
+                k_dev = cuda_time_ms(fused, iters=10, warmup=2, graph=True, replays=4)
+                p_dev = cuda_time_ms(plain, iters=3, warmup=1, graph=True, replays=3)
+                b_ms = x.numel() * 3 * x.element_size() / HBM_BYTES_PER_S * 1e3
+                p = instance_norm._plan_for(x, "none", None)
+                line += (f"; kernel_dev_ms={k_dev:.5f} plain_dev_ms={p_dev:.5f} bound_ms={b_ms:.5f} (bytes) "
+                         f"bound_share={b_ms / k_dev:.3f} plan: vec={p.vec} splits={p.splits} slab={p.slab} "
+                         f"blocks={p.blocks}")
+                out[f"adain_norm_{name}_ms"] = k_dev
+                out[f"adain_norm_{name}_bound_ms"] = b_ms
+            print(line, flush=True)
+            del x
+    return out
+
+
+def smooth_frame(h: int, w: int, seed: int) -> np.ndarray:
+    """An [h, w, 3] uint8 video-like frame: random cells of 240 and 24 px,
+    bicubically upsampled, plus texture of 10 counts."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = torch.zeros((1, 3, h, w), device="cuda")
+    for px, weight in ((240, 0.7), (24, 0.3)):
+        cells = torch.rand((1, 3, h // px + 2, w // px + 2), generator=gen, device="cuda")
+        img += weight * torch.nn.functional.interpolate(cells, size=(h, w), mode="bicubic", align_corners=False)
+    img = img * 255 + 10 * torch.randn((1, 3, h, w), generator=gen, device="cuda")
+    return img.clamp(0, 255).round().to(torch.uint8)[0].permute(1, 2, 0).cpu().numpy()
+
+
+def adain_frame_against_reference() -> dict:
+    """A 3840x2160 frame through the packed-u8 bf16 AdaIN Stylizer with the
+    candy style (shorter side 512), seeded weights (adain.WEIGHTS_SEED):
+    raises unless the content norm launched the pair once and the
+    Stylizer's CUDA graph of the forward replays it bit for bit; device-alone
+    ms of the forward, and back to back through the Stylizer (its graph);
+    against the plain float32 reference, the mean and worst
+    difference in counts, the share of pixels off by more than 8, and the
+    share of the reference's pixels with a channel at 0 or 255."""
+    from faststyle_tpu_torch.models import adain
+    from faststyle_tpu_torch.reference import adain as adain_reference
+
+    params = adain.init_params(torch.Generator().manual_seed(adain.WEIGHTS_SEED), device="cuda")
+    stylizer = inference.Stylizer(params=params, compute_dtype=torch.bfloat16, packed_input=True,
+                                  packed_output=True, device="cuda")
+    style_img = cli_image.load_style_image(REPO / "style_images" / "candy.jpg")
+    style = stylizer.encode_style(style_img)
+    frame = smooth_frame(2160, 3840, SEED)
+    packed = torch.from_numpy(inference.pack_u8_host(frame[None], stylizer.pad)).cuda()
+    fwd = lambda: stylizer.stylize_device(packed, (2160, 3840), style)
+    instance_norm.launches = 0
+    first = fwd()
+    launches = instance_norm.launches
+    if launches != 1:
+        raise AssertionError(f"the 4K AdaIN forward launched the instance-norm pair {launches} times, expected 1")
+    replayed = fwd()  # the Stylizer's CUDA graph of the forward
+    if not torch.equal(first, replayed):
+        raise AssertionError("the 4K AdaIN forward replayed as a CUDA graph differs from its eager run")
+    got = inference.unpack_u8_host(first.cpu().numpy(), 2160, 3840)[0]
+    ms = cuda_time_ms(fwd, iters=3, warmup=1, graph=True, replays=3)
+    eager_ms = cuda_time_ms(fwd, iters=10, warmup=2)
+    del stylizer, packed
+    torch.cuda.empty_cache()
+    ref = adain_reference.stylize_u8({k: dict(v) for k, v in params.items()}, frame, style_img, "cuda")
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    out = {"adain_frame_ms": ms, "adain_frame_eager_ms": eager_ms, "adain_frame_mae": float(diff.mean()),
+           "adain_frame_max_diff": int(diff.max()),
+           "adain_frame_bad_share": float((diff.max(axis=-1) > 8).mean()),
+           "adain_frame_clip_share": float(((ref == 0) | (ref == 255)).any(axis=-1).mean())}
+    print(f"4K packed-u8 bf16 AdaIN frame (seeded weights, candy style), device alone: {ms:.3f} ms, back to back "
+          f"through the Stylizer's graph {eager_ms:.3f} ms, the graph's replay equal to the eager run, 1 pair launch; "
+          f"against the float32 reference: mean |diff| {out['adain_frame_mae']:.4f} counts, worst "
+          f"{out['adain_frame_max_diff']}, share off by more than 8 {out['adain_frame_bad_share']:.2e}; the "
+          f"reference's clipped pixels {out['adain_frame_clip_share']:.4f}", flush=True)
+    if not out["adain_frame_mae"] <= 4.0:
+        raise AssertionError(f"the AdaIN frame is off the reference by {out['adain_frame_mae']:.3f} counts on average")
+    return out
 
 
 def frame_fused_against_plain() -> dict:

@@ -7,7 +7,10 @@
 The flags are faststyle_tpu's stylize_image CLI's, with its defaults, plus
 `--device {cuda,cpu}` (default cuda; there is no silent CPU fallback).
 `--model_path` takes a TF1 checkpoint prefix or a `.npz` (a `.ckpt` name
-resolves to the `.npz` beside it when no TF1 files exist). `--input_dir`
+resolves to the `.npz` beside it when no TF1 files exist). An AdaIN model
+(`models/adain.py`, known by its blocks) stylizes with `--style_image`,
+its shorter side resized to 512 as the AdaIN reference's test.py does,
+and writes the decoder's extent (`adain.output_shape`). `--input_dir`
 groups the images by shape and spreads up to `--batch_size` of them per
 call over every visible card (`parallel.data_parallel.ShardedStylizer`),
 uint8 out of the devices. `--spatial` shards one image's rows over every
@@ -75,7 +78,44 @@ def setup_parser() -> argparse.ArgumentParser:
         default="cuda",
         help="Where to stylize; cuda raises when no GPU is present.",
     )
+    parser.add_argument("--style_image", default=None, help="The style image of an AdaIN model (any style).")
     return parser
+
+
+def load_style_image(path) -> "np.ndarray":
+    """An AdaIN style image as RGB uint8, its shorter side resized to
+    `adain.STYLE_SIZE` (test.py's style_size)."""
+    from faststyle_tpu_torch.models import adain
+    from faststyle_tpu_torch.utils import image_io
+
+    img = image_io.imread(path)
+    return image_io.imresize(img, adain.STYLE_SIZE / min(img.shape[:2]))
+
+
+def style_for(stylizer, path):
+    """The handle of the style image at `path` for a model that stylizes
+    with one (AdaIN), None for a transform net; exits on a missing or a
+    stray `--style_image`."""
+    if not stylizer.takes_style:
+        if path:
+            raise SystemExit("--style_image is an AdaIN model's; this model is a transform net")
+        return None
+    if not path:
+        raise SystemExit("an AdaIN model needs --style_image")
+    return stylizer.encode_style(load_style_image(path))
+
+
+def _transform_net_params(model_path):
+    """The params of a transform net, for the batch and row-sharded modes;
+    an AdaIN model is refused there."""
+    from faststyle_tpu_torch.inference import load_params_numpy
+    from faststyle_tpu_torch.models import adain
+
+    params = load_params_numpy(model_path)
+    if adain.is_adain(params):
+        raise SystemExit("an AdaIN model is served one image at a time: --input_dir and --spatial are the "
+                         "transform net's")
+    return params
 
 
 def _devices(args):
@@ -91,7 +131,6 @@ def stylize_directory(args, compute_dtype) -> int:
     number of images written."""
     import numpy as np
 
-    from faststyle_tpu_torch.inference import load_params_numpy
     from faststyle_tpu_torch.parallel.data_parallel import ShardedStylizer
     from faststyle_tpu_torch.utils import image_io
 
@@ -101,7 +140,7 @@ def stylize_directory(args, compute_dtype) -> int:
     if not files:
         raise SystemExit(f"no images in {in_dir}")
     stylizer = ShardedStylizer(
-        load_params_numpy(args.model_path),
+        _transform_net_params(args.model_path),
         _devices(args),
         upsample_method=args.upsample_method,
         compute_dtype=compute_dtype,
@@ -155,7 +194,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from faststyle_tpu_torch.inference import Stylizer, load_params_numpy
+    from faststyle_tpu_torch.inference import Stylizer
     from faststyle_tpu_torch.utils import image_io
 
     dtype = torch.bfloat16 if args.precision == "bfloat16" else None
@@ -174,7 +213,7 @@ def main(argv=None):
         from faststyle_tpu_torch.parallel.spatial import SpatialStylizer
 
         spatial = SpatialStylizer(
-            load_params_numpy(args.model_path),
+            _transform_net_params(args.model_path),
             _devices(args),
             compute_dtype=dtype,
             upsample_method=args.upsample_method,
@@ -189,8 +228,9 @@ def main(argv=None):
             compute_dtype=dtype,
             device=args.device,
         )
+        style = style_for(stylizer, args.style_image)
         print("Evaluating...")
-        out = stylizer(img)
+        out = stylizer(img, style=style)
     print("Saving image.")
     Path(args.output_img_path).parent.mkdir(parents=True, exist_ok=True)
     image_io.imwrite(args.output_img_path, out)

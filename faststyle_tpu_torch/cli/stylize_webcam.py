@@ -6,8 +6,9 @@
 
 The flags are faststyle_tpu's stylize_webcam CLI's, with its defaults
 (bfloat16, pipeline depth 1), plus `--device {cuda,cpu}` (default cuda;
-no silent CPU fallback). Frames are RGB into the net and BGR out to the
-display and the writer. TF32 is off (`full_float32`).
+no silent CPU fallback) and `--style_image`, the style of an AdaIN model
+(`models/adain.py`, known by its blocks). Frames are RGB into the net and
+BGR out to the display and the writer. TF32 is off (`full_float32`).
 
 Pipelining on one CUDA stream: frame N's upload, forward and download are
 enqueued, then frame N-depth is fetched. For the host not to wait on frame
@@ -72,6 +73,7 @@ def setup_parser() -> argparse.ArgumentParser:
         default="cuda",
         help="Where to stylize; cuda raises when no GPU is present.",
     )
+    parser.add_argument("--style_image", default=None, help="The style image of an AdaIN model (any style).")
     return parser
 
 
@@ -97,11 +99,15 @@ def synthetic_frames(n, h, w):
 class FramePipeline:
     """Frames in flight between the host and the stylizer's device.
 
-    `submit(frame)` stages an HxWx3 uint8 RGB frame in the next slot of a
-    ring of `depth + 1` (pinned on CUDA), enqueues its upload, the forward
-    and the download into the slot's output buffer, and records the slot's
-    event. `fetch()` waits for the oldest frame's event and returns
-    (submit time, HxWx3 uint8 RGB). A returned array may be a view of the
+    `submit(frame, style=None)` stages an HxWx3 uint8 RGB frame in the next
+    slot of a ring of `depth + 1` (pinned on CUDA), enqueues its upload, the
+    forward and the download into the slot's output buffer, and records the
+    slot's event. An AdaIN stylizer's frame is bound to the style handle it
+    is submitted with (`Stylizer.encode_style`): its forward is enqueued
+    with that style, whatever later frames carry. The packed input's border
+    and the output's extent are the stylizer's (`pad`, `output_shape`).
+    `fetch()` waits for the oldest frame's event and returns (submit time,
+    HxWx3 uint8 RGB). A returned array may be a view of the
     slot's buffer: it stays valid until that slot is submitted again, at
     the earliest `depth + 1` submits later; copy it to keep it.
 
@@ -114,14 +120,13 @@ class FramePipeline:
         import torch
 
         from faststyle_tpu_torch.inference import packed_shape
-        from faststyle_tpu_torch.models import transform_net
 
         self._stylizer = stylizer
         self._hw = (height, width)
-        self._out_hw = transform_net.output_shape(height, width)
+        self._out_hw = stylizer.output_shape(height, width)
         dev = stylizer.device
         pin = dev.type == "cuda"
-        in_shape = packed_shape(1, height, width) if stylizer.packed_input else (1, height, width, 3)
+        in_shape = packed_shape(1, height, width, stylizer.pad) if stylizer.packed_input else (1, height, width, 3)
         oh, ow = self._out_hw
         out_shape = (1, -(-oh // 4), -(-ow // 4), 48) if stylizer.packed_output else (1, oh, ow, 3)
         self._slots = [
@@ -139,8 +144,8 @@ class FramePipeline:
     def __len__(self) -> int:
         return len(self._inflight)
 
-    def submit(self, frame) -> None:
-        from faststyle_tpu_torch.inference import pack_u8_host
+    def submit(self, frame, style=None) -> None:
+        from faststyle_tpu_torch.inference import pack_u8_host, style_args
         from faststyle_tpu_torch.utils.profiling import span
 
         t_submit = time.perf_counter()
@@ -154,12 +159,13 @@ class FramePipeline:
                     event.synchronize()  # the slot's last frame has left both buffers
             with span("stream.pack"):
                 if self._stylizer.packed_input:
-                    pack_u8_host(frame[None], out=host_in.numpy())
+                    pack_u8_host(frame[None], self._stylizer.pad, out=host_in.numpy())
                 else:
                     host_in.numpy()[0] = frame
             with span("stream.launch"):
                 x = host_in.to(self._stylizer.device, non_blocking=True)
-                y = self._stylizer.stylize_device(x, self._hw if self._stylizer.packed_input else None)
+                hw = self._hw if self._stylizer.packed_input else None
+                y = self._stylizer.stylize_device(x, hw, *style_args(style))
                 host_out.copy_(y, non_blocking=True)
                 if event is not None:
                     event.record()
@@ -210,6 +216,9 @@ def main(argv=None, on_frame=None) -> dict:
         packed_input=args.packed_fetch,
         device=args.device,
     )
+    from faststyle_tpu_torch.cli.stylize_image import style_for
+
+    style = style_for(stylizer, args.style_image)
     depth = max(args.pipeline_depth, 1)
     lat = []
     result = {"frames": 0, "seconds": 0.0, "fps": 0.0, "p50_ms": None, "p99_ms": None}
@@ -237,7 +246,7 @@ def main(argv=None, on_frame=None) -> dict:
                 on_frame(img)
 
         for frame in synthetic_frames(args.num_synthetic_frames, h, w):
-            pipe.submit(frame)
+            pipe.submit(frame, style)
             count += 1
             if len(pipe) > depth:
                 emit()  # fetch the oldest while newer frames compute
@@ -290,7 +299,7 @@ def main(argv=None, on_frame=None) -> dict:
             ret, frame = cap.read()
             if not ret:
                 break
-            pipe.submit(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))  # uint8 end to end
+            pipe.submit(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB), style)  # uint8 end to end
             if len(pipe) > depth:
                 count += 1
                 if not emit():

@@ -1,9 +1,13 @@
 // Instance norm with its epilogue for NVIDIA Hopper (sm_90a), plain C
-// interface: the serving path's 16 norms of the transform net.
+// interface: the serving path's 16 norms of the transform net, and AdaIN's
+// content norm (C = 512, eps 1e-5, the unbiased variance, the style's
+// sigma and mean as scale and shift).
 //
-//   y[n, h, w, c] = scale[c] * ((x - mean[n, c]) * rsqrt(var[n, c] + 1e-3)) + shift[c]
+//   y[n, h, w, c] = scale[c] * ((x - mean[n, c]) * rsqrt(var[n, c] + eps)) + shift[c]
 //
-// over NHWC x, biased moments over H and W in float32, then one epilogue:
+// over NHWC x, moments over H and W in float32 (var = M2 / (count -
+// correction): correction 0 is the biased variance, 1 the unbiased), then
+// one epilogue:
 // none; relu; residual (+ skip[n, h + 2, w + 2, c], the resblock's input
 // cropped by 2); tanh ((255 tanh(y) + 255) / 2); tanh_u8 (that, clamped
 // to [0, 255] and cast to uint8 by truncation).
@@ -24,16 +28,18 @@
 //     per-channel Welford partials
 //     (count, mean, M2) in float32 registers. instance_norm_merge_kernel:
 //     one block per (n, c) merges the slabs' partials by Chan's formula in
-//     a fixed order and writes mean and rsqrt(var + 1e-3).
+//     a fixed order and writes mean and rsqrt(var + eps).
 //     instance_norm_apply_kernel: one pass that reads x (and the skip),
 //     two vectors in flight a thread, applies the statistics and the
 //     epilogue, and writes once.
 //  2. A thread always meets the same channels. Blocks have THREADS = 384
-//     threads, a multiple of every C the net has (3, 16, 32, 64): a
-//     block's stride of THREADS * V elements, and so every slab start and
-//     every grid stride, is a whole number of pixels, and element j of a
-//     thread's vector always has channel (threadIdx.x * V + j) % C. The
-//     per-channel state lives in registers for the whole walk.
+//     threads; C must divide a block's stride of THREADS * V elements
+//     (every C of the transform net, 3, 16, 32 and 64, divides THREADS
+//     itself; AdaIN's 512 divides 384 * 8 and 384 * 4, the bf16 and
+//     float32 vectors), so every slab start and every grid stride is a
+//     whole number of pixels, and element j of a thread's vector always
+//     has channel (threadIdx.x * V + j) % C. The per-channel state lives
+//     in registers for the whole walk.
 //  3. No atomics: the slabs' partials merge in a tree of fixed shape in
 //     shared memory, then across slabs in a fixed order, so two calls give
 //     the same bits.
@@ -65,7 +71,6 @@ namespace {
 
 constexpr int THREADS = 384;       // a multiple of 3 and of 64 (see 2.)
 constexpr int MERGE_THREADS = 256;  // a power of two: the merge's tree
-constexpr float EPS = 1e-3f;
 
 enum Epilogue { NONE = 0, RELU = 1, RESIDUAL = 2, TANH = 3, TANH_U8 = 4 };
 
@@ -230,19 +235,20 @@ __global__ void __launch_bounds__(THREADS)
     len = keep;
     __syncthreads();
   }
-  if (t < c) {
-    float* p = partial + ((static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * c + t) * 3;
-    p[0] = s_n[t];
-    p[1] = s_mean[t];
-    p[2] = s_m2[t];
+  for (int ch = t; ch < c; ch += THREADS) {  // C may exceed THREADS (AdaIN's 512)
+    float* p = partial + ((static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * c + ch) * 3;
+    p[0] = s_n[ch];
+    p[1] = s_mean[ch];
+    p[2] = s_m2[ch];
   }
 }
 
 // Block (n * c + ch) merges the `splits` slabs' moments of channel ch of
-// image n in a fixed order and writes its mean and rsqrt(var + 1e-3).
+// image n in a fixed order and writes its mean and rsqrt(var + eps), var =
+// M2 / (count - correction).
 __global__ void __launch_bounds__(MERGE_THREADS)
     instance_norm_merge_kernel(const float* __restrict__ partial, float* __restrict__ mean,
-                               float* __restrict__ rstd, int splits, int c) {
+                               float* __restrict__ rstd, int splits, int c, float eps, float correction) {
   __shared__ Moments s[MERGE_THREADS];
   const int t = threadIdx.x;
   const int n = blockIdx.x / c, ch = blockIdx.x % c;
@@ -258,9 +264,9 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     __syncthreads();
   }
   if (t == 0) {
-    const float var = __fdiv_rn(s[0].m2, s[0].n);  // biased
+    const float var = __fdiv_rn(s[0].m2, __fsub_rn(s[0].n, correction));
     mean[blockIdx.x] = s[0].mean;
-    rstd[blockIdx.x] = rsqrtf(__fadd_rn(var, EPS));
+    rstd[blockIdx.x] = rsqrtf(__fadd_rn(var, eps));
   }
 }
 
@@ -379,14 +385,16 @@ cudaError_t with_epilogue(int epilogue, F f) {
 
 extern "C" {
 
-// x: [n, hwc] contiguous, float32 (is_bf16 == 0) or bfloat16; c divides
-// THREADS; vec is 16 / element size (x 16-byte aligned, hwc a multiple of
-// it) or 1. partial: scratch of n * splits * c * 3 floats; slab a multiple
-// of THREADS * vec with splits * slab >= hwc. mean, rstd: [n, c] float32.
-// Two launches; returns cudaGetLastError() of the last, or the first error.
+// x: [n, hwc] contiguous, float32 (is_bf16 == 0) or bfloat16; vec is 16 /
+// element size (x 16-byte aligned, hwc a multiple of it) or 1; c divides
+// THREADS * vec. partial: scratch of n * splits * c * 3 floats; slab a
+// multiple of THREADS * vec with splits * slab >= hwc. mean, rstd: [n, c]
+// float32, rstd = rsqrt(M2 / (count - correction) + eps). Two launches;
+// returns cudaGetLastError() of the last, or the first error.
 int fs_instance_norm_stats(const void* x, void* partial, void* mean, void* rstd, int is_bf16, int vec, int n,
-                           long long hwc, int c, int splits, long long slab, void* stream) {
-  if (THREADS % c != 0) return static_cast<int>(cudaErrorInvalidValue);
+                           long long hwc, int c, int splits, long long slab, float eps, int correction,
+                           void* stream) {
+  if (c <= 0 || (THREADS * vec) % c != 0 || correction < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   return static_cast<int>(with_type(is_bf16, vec, [&](auto t, auto v) {
@@ -395,8 +403,8 @@ int fs_instance_norm_stats(const void* x, void* partial, void* mean, void* rstd,
         <<<dim3(splits, n), THREADS, 0, s>>>(static_cast<const T*>(x), p, hwc, c, slab);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    instance_norm_merge_kernel<<<n * c, MERGE_THREADS, 0, s>>>(p, static_cast<float*>(mean),
-                                                                static_cast<float*>(rstd), splits, c);
+    instance_norm_merge_kernel<<<n * c, MERGE_THREADS, 0, s>>>(
+        p, static_cast<float*>(mean), static_cast<float*>(rstd), splits, c, eps, static_cast<float>(correction));
     return cudaGetLastError();
   }));
 }
@@ -404,12 +412,13 @@ int fs_instance_norm_stats(const void* x, void* partial, void* mean, void* rstd,
 // x, out: [n, h, w, c] contiguous (out uint8 for epilogue 4, else x's
 // type); skip: [n, h + 4, w + 4, c] of x's type for epilogue 2, else
 // unused; mean, rstd: [n, c], scale, shift: [c], float32. Epilogues: 0
-// none, 1 relu, 2 residual, 3 tanh, 4 tanh_u8. vec as for the stats, with
-// skip 16-byte aligned and c a multiple of vec for the residual. One launch.
+// none, 1 relu, 2 residual, 3 tanh, 4 tanh_u8. vec and c as for the stats,
+// with skip 16-byte aligned and c a multiple of vec for the residual. One
+// launch.
 int fs_instance_norm_apply(const void* x, const void* skip, void* out, const void* mean, const void* rstd,
                            const void* scale, const void* shift, int is_bf16, int vec, int epilogue, int n,
                            int h, int w, int c, int blocks, void* stream) {
-  if (THREADS % c != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (c <= 0 || (THREADS * vec) % c != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(with_type(is_bf16, vec, [&](auto t, auto v) {
     using T = typename decltype(t)::type;

@@ -6,8 +6,11 @@ either package loads what the other saves, and the reference's TF1
 checkpoint prefixes through the port's own `compat.tf1_checkpoint`.
 
 `Stylizer` keeps the params resident on its device and runs the naive walk
-eagerly (PyTorch has no trace to cache per shape). uint8 frames go to the
-device as they are and come back clipped and cast there. The packed-u8
+eagerly (PyTorch has no trace to cache per shape). It serves the Johnson
+transform net, or AdaIN (`models/adain.py`), which stylizes with any style
+image: `encode_style` turns one into a handle that each call carries.
+uint8 frames go to the device as they are and come back clipped and cast
+there. The packed-u8
 fast path moves the boundary relayouts of the frames to the host:
 `pack_u8_host` reflect-pads and packs frames, `unpack_u8_host` unpacks
 results, both in C++ (`csrc/depth_to_space.cc`, built at first use by the
@@ -17,6 +20,7 @@ large frame splits into row slabs across a small thread pool).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -24,15 +28,17 @@ import threading
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from faststyle_tpu_torch import convert, resolve_device
-from faststyle_tpu_torch.models import transform_net
+from faststyle_tpu_torch.models import adain, transform_net
 from faststyle_tpu_torch.models.transform_net import Params
 from faststyle_tpu_torch.ops.cuda import build
+from faststyle_tpu_torch.ops.cuda import instance_norm
+from faststyle_tpu_torch.utils import profiling
 
 # Worker pool for host-side pack/unpack: the C++ routines release the GIL
 # and are independent per packed block-row, so a large frame splits into
@@ -239,19 +245,23 @@ def quantize_for_packed_input(imgs: np.ndarray, owner) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def make_forward(
-    upsample_method: str,
-    compute_dtype: torch.dtype | None,
-    *,
-    output_uint8: bool,
-    packed_input: bool,
-    packed_output: bool,
-):
-    """The serving forward contract: fwd(params, x, hw=None). The packed
-    flags route through transform_net.apply_packed with uint8 / packed-u8
-    layouts; otherwise the plain apply with optional uint8 output."""
+class _TransformNet:
+    """The Johnson transform net as Stylizer serves it: its style is in its
+    weights, its packed input carries a reflect border of `_PAD`, and its
+    walk runs eagerly (its `norm.fused` spans are recorded per launch)."""
 
-    def fwd(p: Params, x: torch.Tensor, hw=None) -> torch.Tensor:
+    name, pad, takes_style, graphed = "transform_net", _PAD, False, False
+    output_shape = staticmethod(transform_net.output_shape)
+
+    @staticmethod
+    def prepare(params: Params, compute_dtype) -> Params:
+        return params
+
+    @staticmethod
+    def forward(p: Params, x: torch.Tensor, hw, style, *, upsample_method, compute_dtype, output_uint8,
+                packed_input, packed_output) -> torch.Tensor:
+        if style is not None:
+            raise ValueError("a transform net carries its style in its weights: it takes no style")
         if packed_input or packed_output:
             return transform_net.apply_packed(
                 p,
@@ -271,6 +281,77 @@ def make_forward(
             output_dtype=torch.uint8 if output_uint8 else None,
         )
 
+    @staticmethod
+    def encode_style(p: Params, x: torch.Tensor, compute_dtype, style_id: int):
+        raise ValueError("encode_style is AdaIN's: this Stylizer serves a transform net")
+
+    @staticmethod
+    def blank_style(device: torch.device) -> None:
+        return None
+
+    @staticmethod
+    def float_to_u8(out: np.ndarray) -> np.ndarray:
+        return np.clip(out, 0, 255).astype(np.uint8)
+
+
+class _AdaIN:
+    """AdaIN (`models/adain.py`) as Stylizer serves it: each call carries a
+    style from `encode_style`, its packed input has no border, its weights
+    are cast once (`adain.prepare`), and on the card its forward may replay
+    as a CUDA graph (`Stylizer._graphed`)."""
+
+    name, pad, takes_style, graphed = "adain", adain.PAD, True, True
+    output_shape = staticmethod(adain.output_shape)
+    prepare = staticmethod(adain.prepare)
+    encode_style = staticmethod(adain.encode_style)
+
+    @staticmethod
+    def forward(p: Params, x: torch.Tensor, hw, style, *, upsample_method, compute_dtype, output_uint8,
+                packed_input, packed_output) -> torch.Tensor:
+        if style is None:
+            raise ValueError("an AdaIN model stylizes with a style: pass style=Stylizer.encode_style(image)")
+        if packed_input or packed_output:
+            return adain.apply_packed(p, x, style, compute_dtype=compute_dtype, input_hw=hw,
+                                      output_layout="packed_u8" if packed_output else "nhwc",
+                                      input_layout="packed_u8" if packed_input else "nhwc")
+        return adain.apply(p, x, style, compute_dtype=compute_dtype, output_dtype=torch.uint8 if output_uint8 else None)
+
+    @staticmethod
+    def blank_style(device: torch.device) -> "adain.Style":
+        """Any moments do for a warm-up: a style changes no shape."""
+        ones = torch.ones(adain.DECODER[0][2], device=device)
+        return adain.Style(0, 0 * ones, ones)
+
+    @staticmethod
+    def float_to_u8(out: np.ndarray) -> np.ndarray:
+        return np.clip(out + 0.5, 0, 255).astype(np.uint8)  # rounded, as adain.to_u8
+
+
+_KINDS = {kind.name: kind for kind in (_TransformNet, _AdaIN)}
+MODELS = tuple(_KINDS)
+
+
+def make_forward(
+    upsample_method: str,
+    compute_dtype: torch.dtype | None,
+    *,
+    output_uint8: bool,
+    packed_input: bool,
+    packed_output: bool,
+    model: str = "transform_net",
+):
+    """The serving forward contract: fwd(params, x, hw=None, style=None).
+    The packed flags route through the model's apply_packed with uint8 /
+    packed-u8 layouts; otherwise the plain apply with optional uint8
+    output. `style` (an `adain.Style`) is AdaIN's, and only AdaIN's."""
+    if model not in _KINDS:
+        raise ValueError(f"model must be one of {MODELS}, got {model!r}")
+    forward = functools.partial(_KINDS[model].forward, upsample_method=upsample_method, compute_dtype=compute_dtype,
+                                output_uint8=output_uint8, packed_input=packed_input, packed_output=packed_output)
+
+    def fwd(p: Params, x: torch.Tensor, hw=None, style=None) -> torch.Tensor:
+        return forward(p, x, hw, style)
+
     return fwd
 
 
@@ -281,6 +362,23 @@ def _as_torch_params(params: Mapping, device: torch.device) -> Params:
     if leaves and all(isinstance(v, torch.Tensor) for v in leaves):
         return {blk: {var: t.detach().to(device, torch.float32) for var, t in sub.items()} for blk, sub in params.items()}
     return convert.params_from_numpy(params, device=device)
+
+
+def style_args(style) -> tuple:
+    """The style as a trailing argument, or none: a transform net's calls
+    keep their two-argument form."""
+    return () if style is None else (style,)
+
+
+class _Graph(NamedTuple):
+    """One forward captured as a CUDA graph over static inputs and output."""
+
+    key: tuple
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor
+    style: "adain.Style"
+    out: torch.Tensor
+    fused: bool  # whether the capture holds the instance-norm kernels
 
 
 class Stylizer:
@@ -301,6 +399,7 @@ class Stylizer:
         packed_output: bool = False,
         packed_input: bool = False,
         device: str | torch.device = "cuda",
+        model: str | None = None,
     ):
         """`output_uint8` clips and casts on the device, so a fetched frame
         moves a quarter of float32's bytes; uint8 input frames go to the
@@ -308,8 +407,8 @@ class Stylizer:
 
         `packed_output` (implies output_uint8): stylize_batch returns the
         packed uint8 tensor [N, ceil(OH/4), ceil(OW/4), 48], (OH, OW) =
-        transform_net.output_shape(H, W); `unpack_u8_host(out, OH, OW)`
-        interleaves it on the host.
+        self.output_shape(H, W); `unpack_u8_host(out, OH, OW)` interleaves
+        it on the host.
 
         `packed_input` (implies output_uint8): stylize_batch reflect-pads and
         packs uint8 frames on the host (`pack_u8_host`), and the device
@@ -317,7 +416,12 @@ class Stylizer:
         with a one-time warning per instance.
 
         `params`: `{block: {var: array}}`, torch tensors in torch layouts or
-        numpy arrays in the file layouts; else `model_path` is loaded."""
+        numpy arrays in the file layouts; else `model_path` is loaded.
+
+        `model`: "transform_net" or "adain"; None reads it from the blocks'
+        names (`adain.is_adain`). An AdaIN model stylizes each call with a
+        `style` from `encode_style`; its packed input has no border (pad
+        0), and its output extent is `adain.output_shape`'s."""
         self.device = resolve_device(device)
         if params is None:
             if model_path is None:
@@ -325,23 +429,62 @@ class Stylizer:
             params = load_params_numpy(model_path)
         if upsample_method not in transform_net.UPSAMPLE_METHODS:
             raise ValueError(f"unknown upsample_method {upsample_method!r}")
+        if model is None:
+            model = "adain" if adain.is_adain(params) else "transform_net"
+        self._fwd = make_forward(
+            upsample_method,
+            compute_dtype,
+            output_uint8=output_uint8 or packed_output or packed_input,
+            packed_input=packed_input,
+            packed_output=packed_output,
+            model=model,
+        )
+        self._kind = _KINDS[model]
+        self._compute_dtype = compute_dtype
+        self._styles = 0
         self._params = _as_torch_params(params, self.device)
+        self._walk_params = self._kind.prepare(self._params, compute_dtype)  # what the forward reads
         self._method = upsample_method
         self._output_uint8 = output_uint8 or packed_output or packed_input
         self._packed_output = packed_output
         self._packed_input = packed_input
         self._warned_quantize = False
-        self._fwd = make_forward(
-            upsample_method,
-            compute_dtype,
-            output_uint8=self._output_uint8,
-            packed_input=packed_input,
-            packed_output=packed_output,
-        )
+        self._graph: Optional[_Graph] = None
+        self._eager_key: Optional[tuple] = None
 
     @property
     def params(self) -> Params:
         return self._params
+
+    @property
+    def model(self) -> str:
+        """"transform_net" or "adain"."""
+        return self._kind.name
+
+    @property
+    def takes_style(self) -> bool:
+        """Whether each call carries a style from `encode_style` (AdaIN)."""
+        return self._kind.takes_style
+
+    @property
+    def pad(self) -> int:
+        """The border `pack_u8_host` gives this model's packed input."""
+        return self._kind.pad
+
+    def output_shape(self, h: int, w: int) -> tuple[int, int]:
+        """The model's output extent for an h x w frame."""
+        return self._kind.output_shape(h, w)
+
+    def encode_style(self, image: np.ndarray | torch.Tensor) -> "adain.Style":
+        """An AdaIN style handle from an HxWx3 RGB [0, 255] image (uint8 or
+        float), encoded on the device in the compute dtype; its moments stay
+        resident there. Each handle gets the next id (its `adain.style`
+        span's)."""
+        x = torch.as_tensor(image).to(self.device)
+        with torch.inference_mode():
+            style = self._kind.encode_style(self._walk_params, x, self._compute_dtype, self._styles + 1)
+        self._styles += 1
+        return style
 
     @property
     def packed_input(self) -> bool:
@@ -351,14 +494,54 @@ class Stylizer:
     def packed_output(self) -> bool:
         return self._packed_output
 
-    def stylize_device(self, x: torch.Tensor, hw: tuple[int, int] | None = None) -> torch.Tensor:
+    def stylize_device(self, x: torch.Tensor, hw: tuple[int, int] | None = None, style=None) -> torch.Tensor:
         """The forward on a tensor already on the device, in the input
         layout (packed uint8 with `hw` = (h, w) when packed_input), without
-        any host conversion: the streaming CLI stages frames itself."""
+        any host conversion: the streaming CLI stages frames itself.
+        `style`: an AdaIN model's handle from `encode_style`. On the card an
+        AdaIN forward called again at one shape replays a CUDA graph of
+        itself (`_graphed`)."""
         with torch.inference_mode():
-            return self._fwd(self._params, x, hw)
+            # a missing style raises in the eager forward
+            if self._kind.graphed and style is not None and x.is_cuda and not torch.cuda.is_current_stream_capturing():
+                return self._graphed(x, hw, style)
+            return self._fwd(self._walk_params, x, hw, *style_args(style))
 
-    def stylize_batch(self, imgs: np.ndarray | torch.Tensor) -> torch.Tensor:
+    def _graphed(self, x: torch.Tensor, hw, style: "adain.Style") -> torch.Tensor:
+        """An AdaIN forward as one CUDA graph launch: its ~190 launches cost
+        the host more than a 4K frame's 22 device ms can hide. A call at a
+        new shape runs eagerly (the kernels' builds, cuDNN's plans and every
+        cached index are made there); the next call at that same shape
+        captures the forward over static copies of x and the style's
+        moments, in place of any graph held before, so a Stylizer holds one
+        graph and its memory pool. A call at the graph's shape copies its
+        inputs in and replays it, inside an `adain.norm` span when the graph
+        holds the norm kernels, and returns a copy of its output."""
+        key = (tuple(x.shape), x.dtype, hw)
+        if self._graph is None or self._graph.key != key:
+            if key != self._eager_key:
+                self._eager_key = key
+                return self._fwd(self._walk_params, x, hw, style)
+            self._graph = None  # the old graph's pool goes before the new one is taken
+            self._graph = self._capture(key, x, hw, style)
+        g = self._graph
+        g.x.copy_(x)
+        g.style.mean.copy_(style.mean)
+        g.style.std.copy_(style.std)
+        with profiling.span("adain.norm") if g.fused else contextlib.nullcontext():
+            g.graph.replay()
+        return g.out.clone()
+
+    def _capture(self, key: tuple, x: torch.Tensor, hw, style: "adain.Style") -> _Graph:
+        static_x, static_style = x.clone(), adain.Style(0, style.mean.clone(), style.std.clone())
+        graph, launches = torch.cuda.CUDAGraph(), instance_norm.launches
+        with torch.cuda.graph(graph):
+            out = self._fwd(self._walk_params, static_x, hw, static_style)
+        fused = instance_norm.launches > launches
+        instance_norm.launches = launches  # a capture launches nothing
+        return _Graph(key, graph, static_x, static_style, out, fused)
+
+    def stylize_batch(self, imgs: np.ndarray | torch.Tensor, style=None) -> torch.Tensor:
         """NHWC RGB [0, 255] -> stylized NHWC [0, 255] on the device (float32,
         or uint8 with output_uint8). With output_uint8, uint8 inputs go to
         the device as they are; otherwise inputs become float32.
@@ -370,25 +553,25 @@ class Stylizer:
             if isinstance(imgs, torch.Tensor):
                 imgs = imgs.cpu().numpy()
             imgs = quantize_for_packed_input(np.asarray(imgs), self)
-            packed = torch.from_numpy(pack_u8_host(imgs)).to(self.device)
-            return self.stylize_device(packed, tuple(imgs.shape[1:3]))
+            packed = torch.from_numpy(pack_u8_host(imgs, self.pad)).to(self.device)
+            return self.stylize_device(packed, tuple(imgs.shape[1:3]), *style_args(style))
         x = torch.as_tensor(imgs)
         if x.dtype != torch.float32 and not (self._output_uint8 and x.dtype == torch.uint8):
             x = x.float()
-        return self.stylize_device(x.to(self.device))
+        return self.stylize_device(x.to(self.device), None, *style_args(style))
 
-    def __call__(self, img: np.ndarray) -> np.ndarray:
+    def __call__(self, img: np.ndarray, style=None) -> np.ndarray:
         """Single HWC image (uint8 or float RGB) -> stylized HWC uint8."""
         img = np.asarray(img)
         if not (self._output_uint8 and img.dtype == np.uint8):
             img = img.astype(np.float32)
-        out = self.stylize_batch(img[None]).cpu().numpy()
+        out = self.stylize_batch(img[None], style).cpu().numpy()
         if self._packed_output:
-            oh, ow = transform_net.output_shape(img.shape[0], img.shape[1])
+            oh, ow = self.output_shape(img.shape[0], img.shape[1])
             return unpack_u8_host(out, oh, ow)[0]
         if out.dtype == np.uint8:
             return out[0]
-        return np.clip(out[0], 0, 255).astype(np.uint8)
+        return self._kind.float_to_u8(out[0])
 
     def warmup(self, height: int, width: int, dtypes=None) -> None:
         """Run and synchronise one call per dtype signature stylize_batch can
@@ -400,7 +583,8 @@ class Stylizer:
             dtypes = [np.uint8, np.float32] if self._output_uint8 else [np.float32]
         if self._packed_input:
             dtypes = [np.uint8]
+        style = self._kind.blank_style(self.device)
         for dt in dtypes:
-            out = self.stylize_batch(np.zeros((1, height, width, 3), dt))
+            out = self.stylize_batch(np.zeros((1, height, width, 3), dt), style)
             if out.is_cuda:
                 torch.cuda.synchronize(out.device)

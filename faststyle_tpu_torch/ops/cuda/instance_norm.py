@@ -1,10 +1,13 @@
 """Instance norm fused with what follows it, the serving path's norms, with
 a CUDA kernel pair.
 
-    y = scale * ((x - mean) * rsqrt(var + 1e-3)) + shift,  then an epilogue
+    y = scale * ((x - mean) * rsqrt(var + eps)) + shift,  then an epilogue
 
-over NHWC x, with biased moments over H and W in float32 whatever the
-activation's dtype (`layers.instance_norm`), then one of EPILOGUES:
+over NHWC x, with moments over H and W in float32 whatever the
+activation's dtype (`layers.instance_norm`; var = M2 / (count -
+correction): the transform net's eps 1e-3 with the biased variance, the
+default, or AdaIN's 1e-5 with the unbiased one, the style's sigma and mean
+as scale and shift), then one of EPILOGUES:
 "none"; "relu"; "residual", + skip[:, 2:-2, 2:-2], a resblock's input;
 "tanh", `layers.scaled_tanh`; "tanh_u8", the scaled tanh clamped to
 [0, 255] and cast to uint8, as `transform_net.apply`'s uint8 output.
@@ -19,14 +22,15 @@ slabs of each image with 16-byte loads, a thread always meeting the same
 channels, and keeps per-channel Welford moments in float32;
 `instance_norm_merge_kernel` merges the slabs' moments in a fixed order
 (Chan's formula; no atomics, so two calls give the same bits) into the
-mean and rsqrt(var + 1e-3); `instance_norm_apply_kernel` reads x once more,
+mean and rsqrt(var + eps); `instance_norm_apply_kernel` reads x once more,
 applies them with the epilogue fused, and writes once. The apply rounds
 where the plain chain rounds, so given the same mean and rstd the two
 outputs are equal bit for bit; only the moments' summation order differs
 from `torch.var_mean`'s.
 
 `instance_norm_epilogue` takes NHWC float32 or bfloat16, contiguous, with
-C dividing 384 (3, 16, 32 and 64 in the net), and has no gradient. A CUDA
+C dividing 384 (3, 16, 32 and 64 in the net) or a 16-byte load's stride,
+384 * 16 / element size (AdaIN's 512), and has no gradient. A CUDA
 tensor goes through the kernels or raises; a CPU tensor through
 `instance_norm_epilogue_plain`, `layers.instance_norm` followed by the
 same epilogue. `engages` says when the transform net's walk takes it.
@@ -46,7 +50,7 @@ from faststyle_tpu_torch.ops.cuda import build
 
 EPILOGUES = ("none", "relu", "residual", "tanh", "tanh_u8")
 DTYPES = (torch.float32, torch.bfloat16)
-THREADS = 384  # a block's threads in csrc/instance_norm.cu; every C must divide it
+THREADS = 384  # a block's threads in csrc/instance_norm.cu; C divides it, or THREADS * a vector
 
 launches = 0
 
@@ -84,12 +88,15 @@ def instance_norm_epilogue_plain(
     epilogue: str = "none",
     skip: Optional[torch.Tensor] = None,
     stats: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    eps: float = 1e-3,
+    correction: int = 0,
 ) -> torch.Tensor:
     """The kernels' plain version: `layers.instance_norm`, then the
     epilogue. `stats` = (mean, rstd), each [n, c] float32, replaces the
     moments with given ones in the same chain (the card's check hands it
     the kernels' own)."""
-    return epilogue_plain(L.instance_norm(x, scale, shift, stats=stats), epilogue, skip)
+    y = L.instance_norm(x, scale, shift, eps, stats=stats, correction=correction)
+    return epilogue_plain(y, epilogue, skip)
 
 
 def takes(x: torch.Tensor, *others: Optional[torch.Tensor]) -> bool:
@@ -126,6 +133,13 @@ def plan(n: int, hwc: int, vec: int, slots: tuple[int, int]) -> NormPlan:
     return NormPlan(vec, _cdiv(hwc, slab), slab, max(1, min(slots[1] // n, most)))
 
 
+def fits(c: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take C channels of `dtype`: C divides a block's
+    stride of THREADS 16-byte vectors (THREADS itself, for the walk with one
+    element a load)."""
+    return c > 0 and (THREADS * 128 // torch.finfo(dtype).bits) % c == 0
+
+
 def vector_width(x: torch.Tensor, skip: Optional[torch.Tensor]) -> int:
     """16 bytes of elements a load when every pointer is 16-byte aligned,
     each image's elements fill whole vectors and (for the residual) each
@@ -139,7 +153,7 @@ def vector_width(x: torch.Tensor, skip: Optional[torch.Tensor]) -> int:
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, epilogue: str,
-           skip: Optional[torch.Tensor]) -> None:
+           skip: Optional[torch.Tensor], eps: float, correction: int) -> None:
     if x.dim() != 4:
         raise ValueError(f"instance_norm_epilogue: expected NHWC [n,h,w,c], got shape {tuple(x.shape)}")
     n, h, w, c = x.shape
@@ -149,8 +163,11 @@ def _check(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, epilogue: 
         raise ValueError("instance_norm_epilogue: expected a contiguous NHWC tensor")
     if x.numel() == 0:
         raise ValueError(f"instance_norm_epilogue: empty input {tuple(x.shape)}")
-    if THREADS % c:
-        raise ValueError(f"instance_norm_epilogue: C must divide {THREADS}, got {c}")
+    if not fits(c, x.dtype):
+        raise ValueError(f"instance_norm_epilogue: C must divide {THREADS} or {THREADS} 16-byte vectors, got {c}")
+    if correction not in (0, 1) or not eps > 0 or (correction and h * w < 2):
+        raise ValueError(f"instance_norm_epilogue: needs eps > 0 and a correction of 0, or 1 over 2 pixels or more; "
+                         f"got eps {eps}, correction {correction} over {h}x{w}")
     for name, t in (("scale", scale), ("shift", shift)):
         if t.shape != (c,) or t.device != x.device:
             raise ValueError(f"instance_norm_epilogue: {name} must be [{c}] on {x.device}, got "
@@ -172,7 +189,7 @@ def _lib() -> ctypes.CDLL:
     lib.fs_instance_norm_stats.argtypes = [
         ptr, ptr, ptr, ptr,  # x, partial, mean, rstd
         i32, i32, i32, i64, i32,  # is_bf16, vec, n, hwc, c
-        i32, i64, ptr,  # splits, slab, stream
+        i32, i64, ctypes.c_float, i32, ptr,  # splits, slab, eps, correction, stream
     ]
     lib.fs_instance_norm_stats.restype = i32
     lib.fs_instance_norm_apply.argtypes = [
@@ -213,16 +230,17 @@ def _plan_for(x: torch.Tensor, epilogue: str, skip: Optional[torch.Tensor]) -> N
     return plan(n, h * w * c, vec, card_slots(x.device.index, x.dtype, vec, epilogue))
 
 
-def stats_cuda(x: torch.Tensor, p: Optional[NormPlan] = None) -> tuple[torch.Tensor, torch.Tensor]:
+def stats_cuda(x: torch.Tensor, p: Optional[NormPlan] = None, eps: float = 1e-3,
+               correction: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """The statistics kernels on a checked CUDA tensor: (mean, rsqrt(var +
-    1e-3)), each [n, c] float32."""
+    eps)), each [n, c] float32, var with the given correction."""
     n, h, w, c = x.shape
     p = p or _plan_for(x, "none", None)
     stats = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
     partial = torch.empty(n * p.splits * c * 3, dtype=torch.float32, device=x.device)
     err = _lib().fs_instance_norm_stats(
         x.data_ptr(), partial.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        int(x.dtype == torch.bfloat16), p.vec, n, h * w * c, c, p.splits, p.slab,
+        int(x.dtype == torch.bfloat16), p.vec, n, h * w * c, c, p.splits, p.slab, eps, correction,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on(err, "statistics")
@@ -230,16 +248,19 @@ def stats_cuda(x: torch.Tensor, p: Optional[NormPlan] = None) -> tuple[torch.Ten
 
 
 def instance_norm_epilogue_cuda(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, epilogue: str,
-                                skip: Optional[torch.Tensor]) -> torch.Tensor:
+                                skip: Optional[torch.Tensor], eps: float = 1e-3,
+                                correction: int = 0) -> torch.Tensor:
     """Launch the kernel pair on checked CUDA tensors (no autograd)."""
     dev = x.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
-            return instance_norm_epilogue_cuda(x, scale, shift, epilogue, skip)
+            return instance_norm_epilogue_cuda(x, scale, shift, epilogue, skip, eps, correction)
     global launches
     n, h, w, c = x.shape
+    if (THREADS * vector_width(x, skip)) % c:  # a C that needs whole vectors, on an unaligned tensor
+        x, skip = x.clone(), None if skip is None else skip.clone()
     p = _plan_for(x, epilogue, skip)
-    mean, rstd = stats_cuda(x, p)
+    mean, rstd = stats_cuda(x, p, eps, correction)
     scale, shift = scale.float().contiguous(), shift.float().contiguous()
     out = torch.empty(x.shape, dtype=torch.uint8 if epilogue == "tanh_u8" else x.dtype, device=dev)
     err = _lib().fs_instance_norm_apply(
@@ -258,10 +279,14 @@ def instance_norm_epilogue(
     shift: torch.Tensor,
     epilogue: str = "none",
     skip: Optional[torch.Tensor] = None,
+    eps: float = 1e-3,
+    correction: int = 0,
 ) -> torch.Tensor:
     """[n,h,w,c] -> the norm with its epilogue, x's dtype (uint8 for
-    "tanh_u8"); the kernels on a CUDA tensor, the plain version on the CPU."""
-    _check(x, scale, shift, epilogue, skip)
+    "tanh_u8"); the kernels on a CUDA tensor, the plain version on the CPU.
+    `eps` and `correction` (0: the biased variance, 1: the unbiased) as
+    `layers.instance_norm` takes them."""
+    _check(x, scale, shift, epilogue, skip, eps, correction)
     if x.is_cuda:
-        return instance_norm_epilogue_cuda(x, scale, shift, epilogue, skip)
-    return instance_norm_epilogue_plain(x, scale, shift, epilogue, skip)
+        return instance_norm_epilogue_cuda(x, scale, shift, epilogue, skip, eps, correction)
+    return instance_norm_epilogue_plain(x, scale, shift, epilogue, skip, eps=eps, correction=correction)

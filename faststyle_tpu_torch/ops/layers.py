@@ -12,12 +12,15 @@ Numerical contracts kept from the JAX package:
   * conv2d SAME      — TF's split, pad_lo = pad_total // 2
   * transposed_conv2d — TF SAME transposed conv (the adjoint of SAME)
   * instance norm    — biased moments in float32, eps=1e-3 inside the rsqrt
+                       (AdaIN: the unbiased variance, eps=1e-5)
   * scaled_tanh      — (255*tanh(x) + 255) / 2, in float32
   * relu             — subgradient 0 at x == 0 (torch.relu's own rule)
   * max_pool_2x2_same — TF SAME: odd extents pad the high side with -inf
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -59,8 +62,10 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def resize_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Integer-factor nearest-neighbour upsample of NHWC (pixel replication)."""
-    return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
+    """Integer-factor nearest-neighbour upsample of NHWC (pixel replication),
+    as one broadcast copy."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(n, h, factor, w, factor, c).reshape(n, factor * h, factor * w, c)
 
 
 # ---------------------------------------------------------------------------
@@ -75,13 +80,16 @@ def _same_pads(n: int, k: int, stride: int) -> tuple[int, int]:
 
 
 def conv2d(
-    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAME", bias=None
+    x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAME", bias=None, relu: bool = False
 ) -> torch.Tensor:
     """NHWC x OIHW convolution; SAME/VALID as TF defines them (SAME splits
     the pad as pad_lo = total // 2, so stride-2 on an even extent pads
     (0, 1), which torch's symmetric `padding=` cannot express). When a
     gradient can flow, its backward is ops/conv_grad's: forward convs and
-    the deterministic weight-gradient kernel, not cuDNN's atomics."""
+    the deterministic weight-gradient kernel, not cuDNN's atomics. `relu`
+    follows it with a relu: where nothing records a gradient on the card,
+    the bias and the relu are cuDNN's fused epilogue
+    (`cudnn_convolution_relu`), so neither costs a pass of its own."""
     k_h, k_w = w.shape[2], w.shape[3]
     xn = _nchw(x)
     pad = (0, 0)
@@ -95,7 +103,51 @@ def conv2d(
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
     b = None if bias is None else bias.to(x.dtype)
-    return _nhwc(conv_grad.conv2d(xn, w.to(x.dtype), b, stride, pad))
+    grad = torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, bias))
+    if relu and x.is_cuda and not grad:
+        return _nhwc(torch.cudnn_convolution_relu(xn, w.to(x.dtype), b, [stride] * 2, list(pad), [1, 1], 1))
+    y = _nhwc(conv_grad.conv2d(xn, w.to(x.dtype), b, stride, pad))
+    return torch.relu(y) if relu else y
+
+
+def conv3x3_reflect(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, relu: bool = False) -> torch.Tensor:
+    """`conv2d(reflect_pad(x, 1), w, padding="VALID", bias=bias, relu=relu)`
+    for a 3x3 kernel (a ReflectionPad2d(1) and its conv) without the padded
+    copy: one SAME conv over x (zeros around), then its first and last rows
+    and columns, the only outputs that read the pad, again from 3-px strips
+    of x with the reflected edge, written over the first pass's. Extents
+    under 2, and a conv that autograd records, pad x itself."""
+    if w.shape[2:] != (3, 3):
+        raise ValueError(f"conv3x3_reflect takes 3x3 kernels, got {tuple(w.shape)}")
+    _, h, wd, _ = x.shape
+    if h < 2 or wd < 2 or (torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, bias))):
+        return conv2d(reflect_pad(x, 1), w, padding="VALID", bias=bias, relu=relu)
+    n, _, _, c = x.shape
+    y = conv2d(x, w, bias=bias, relu=relu)
+    pixels = x.reshape(n, h * wd, c)
+    row_src, col_src, row_ends, col_ends = _edge_sources(h, wd, x.device)
+    rows = conv2d(pixels.index_select(1, row_src).view(n, 6, wd + 2, c), w, padding="VALID", bias=bias, relu=relu)
+    y.index_copy_(1, row_ends, rows[:, ::3])  # rows 0 and 3 of 4: the first and the last
+    cols = conv2d(pixels.index_select(1, col_src).view(n, h + 2, 6, c), w, padding="VALID", bias=bias, relu=relu)
+    y.index_copy_(2, col_ends, cols[:, :, ::3])
+    return y
+
+
+@functools.lru_cache(maxsize=256)
+def _edge_sources(h: int, w: int, device) -> tuple[torch.Tensor, ...]:
+    """For an h x w image (both >= 2): the flat pixel sources of its edge
+    strips, the rows 1, 0, 1 and h-2, h-1, h-2 across all the columns
+    reflect-padded by 1 ([6, w + 2]), and the columns 1, 0, 1 and w-2, w-1,
+    w-2 down all the rows reflect-padded by 1 ([h + 2, 6]); then the edge
+    rows (0, h-1) and columns (0, w-1)."""
+
+    def edges(k: int) -> torch.Tensor:
+        return torch.tensor([1, 0, 1, k - 2, k - 1, k - 2])
+
+    rows = edges(h)[:, None] * w + _reflect_index(w, 1, "cpu")[None, :]
+    cols = _reflect_index(h, 1, "cpu")[:, None] * w + edges(w)[None, :]
+    ends = [torch.tensor([0, k - 1]) for k in (h, w)]
+    return tuple(t.flatten().to(device) for t in (rows, cols, *ends))
 
 
 def transposed_conv2d(x: torch.Tensor, w_iohw: torch.Tensor, stride: int) -> torch.Tensor:
@@ -199,14 +251,16 @@ def instance_norm(
     shift: torch.Tensor,
     eps: float = 1e-3,
     stats: tuple[torch.Tensor, torch.Tensor] | None = None,
+    correction: int = 0,
 ) -> torch.Tensor:
-    """Instance norm over H, W with a per-channel affine: biased variance,
-    eps inside the rsqrt, moments in float32 whatever the activation dtype.
-    `stats` = (mean, rsqrt(var + eps)), each [n, c] float32, replaces the
-    moments with given ones in the same chain."""
+    """Instance norm over H, W with a per-channel affine: the variance with
+    `correction` (0, the default: biased; 1: unbiased, as AdaIN's
+    `calc_mean_std` takes it), eps inside the rsqrt, moments in float32
+    whatever the activation dtype. `stats` = (mean, rsqrt(var + eps)), each
+    [n, c] float32, replaces the moments with given ones in the same chain."""
     xf = x.float()
     if stats is None:
-        var, mean = torch.var_mean(xf, dim=(1, 2), correction=0, keepdim=True)
+        var, mean = torch.var_mean(xf, dim=(1, 2), correction=correction, keepdim=True)
         rstd = torch.rsqrt(var + eps)
     else:
         mean, rstd = (s[:, None, None, :] for s in stats)

@@ -28,6 +28,7 @@ def test_flags_and_defaults_are_the_jax_clis(ours, theirs):
     mine = vars(ours.setup_parser().parse_args([]))
     ref = vars(theirs.setup_parser().parse_args([]))
     assert mine.pop("device") == "cuda"
+    assert mine.pop("style_image") is None  # an AdaIN model's style; the JAX CLIs serve transform nets only
     assert mine == ref
 
 
