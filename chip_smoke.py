@@ -7,7 +7,7 @@
 Phases, each raising on failure (the script then exits non-zero):
   1. device  — requires CUDA; prints the card's name and power limit, turns
                TF32 off for matmuls and cuDNN (full float32 everywhere)
-  2. build   — compiles the Gram, weight-gradient and instance-norm kernels
+  2. build   — compiles the Gram, weight-gradient, instance-norm and direct-conv kernels
                (nvcc), the host pack library and the TFRecord codec (c++) from
                faststyle_tpu_torch/csrc, all together, and checks with
                cuobjdump that the tile kernels run on the tensor cores (HMMA
@@ -49,6 +49,19 @@ Phases, each raising on failure (the script then exits non-zero):
                (faststyle_tpu_torch/reference/adain.py): one pair launch,
                its device-alone ms, the mean and worst difference in
                counts and the share of clipped pixels
+  4c. conv   — the direct 9x9 conv kernel (ops/cuda/direct_conv) at the
+               4K walk's two 9x9s (initconv_0 3->16 over 2240x3920,
+               upsample_2 16->3 over 2160x3840), ragged shapes (1x1, 7x5,
+               several images, odd extents, unaligned) and a 4-way
+               `parallel.spatial` row window: within one bf16 rounding of
+               the float32 conv of the same values, two calls bitwise
+               equal; at 4K, device-alone ms (L2 flushed) beside the byte
+               bound, the plain version's and cuDNN's bf16 conv of the
+               same call; then each of the serving walk's 16 convs at 4K
+               through `layers.conv2d` as the walk calls it, device alone
+               and cold, beside its least time, with the kernels one call
+               runs (the phase 4b frame counts 2 direct-conv launches and
+               times the frame with cuDNN's 9x9s too)
   5. repro   — with no determinism flag set: two default `cli.train` 3-step
                runs in fresh processes, float32 and bfloat16, bit-equal;
                every convolution of the f32 and bf16 steps run twice
@@ -148,7 +161,7 @@ from faststyle_tpu_torch.inference import load_params
 from faststyle_tpu_torch.models import transform_net, vgg16
 from faststyle_tpu_torch.ops import layers
 from faststyle_tpu_torch.ops import conv_grad
-from faststyle_tpu_torch.ops.cuda import build, conv_wgrad, gram
+from faststyle_tpu_torch.ops.cuda import build, conv_wgrad, direct_conv, gram
 from faststyle_tpu_torch.ops.cuda import instance_norm
 from faststyle_tpu_torch.parallel import data_parallel, dryrun, spatial
 from faststyle_tpu_torch.tools import distill_validation as distill
@@ -182,9 +195,9 @@ CHECK_SHAPES = [(s, dt, 0) for dt in (torch.float32, torch.bfloat16) for s in TR
 ]
 # in both dtypes: split (two launches); one launch, mostly off-diagonal tiles
 DETERMINISM_SHAPES = [TRAIN_SHAPES[0], TRAIN_SHAPES[3]]
-# csrc/gram.cu, csrc/conv_wgrad.cu and csrc/instance_norm.cu (the kernels);
+# csrc/gram.cu, csrc/conv_wgrad.cu, csrc/instance_norm.cu and csrc/direct_conv.cu (the kernels);
 # csrc/depth_to_space.cc and csrc/tfrecord_io.cc (host)
-BUILDS = ("gram", "conv_wgrad", "instance_norm", "depth_to_space", "tfrecord_io")
+BUILDS = ("gram", "conv_wgrad", "instance_norm", "direct_conv", "depth_to_space", "tfrecord_io")
 # forward: float32 sums over hw in another order than cuBLAS -> 1e-4 of the
 # largest entry; gradient: the same matmul formula in f32 (1e-4), and for
 # bf16 one bf16 rounding of each entry after it (2^-8 ~ 4e-3 -> 1e-2)
@@ -230,6 +243,7 @@ def build_phase() -> None:
     gram._lib()  # load and bind
     conv_wgrad._lib()
     instance_norm._lib()
+    direct_conv._lib()
     inference._host_lib()
     tfrecord._lib()
     for name, (path, seconds) in built.items():
@@ -237,6 +251,7 @@ def build_phase() -> None:
     tensor_core_check(built["gram"][0], "gram_")
     tensor_core_check(built["conv_wgrad"][0], "wgrad_", ("tile", "strip", "strip_kn"))
     print_usage(built["instance_norm"][0], "instance_norm_")
+    tensor_core_check(built["direct_conv"][0], "direct_conv", ("", "_kn"))
 
 
 def cuobjdump(lib_path: Path, flag: str) -> str:
@@ -646,6 +661,7 @@ NORM_STATS_RTOL = 1e-5  # moments against float64's
 ADAIN_NORM_4K = (1, 270, 480, 512)
 ADAIN_NORM_RAGGED = [((2, 7, 9, 512), 0), ((1, 3, 5, 512), 0), ((1, 17, 23, 512), 1)]
 NORMS_A_FORWARD = len(NORM_SHAPES_4K)  # the pair's launches in one serving forward
+CONVS_A_FORWARD = 2  # the direct conv's launches in one bf16 serving forward: initconv_0, upsample_2
 
 
 def norm_inputs(shape, dtype, gen, offset: int = 0):
@@ -871,14 +887,14 @@ def frame_fused_against_plain() -> dict:
     img = np.random.default_rng(SEED).integers(0, 256, (1, 2160, 3840, 3), dtype=np.uint8)
     packed = torch.from_numpy(inference.pack_u8_host(img)).cuda()
     fwd = lambda: stylizer.stylize_device(packed, (2160, 3840))
-    instance_norm.launches = 0
+    instance_norm.launches = direct_conv.launches = 0
     fused_out = fwd()
-    launches = instance_norm.launches
+    launches, convs = instance_norm.launches, direct_conv.launches
     print(f"4K packed-u8 bf16 Stylizer.stylize_device: instance_norm launches {launches} in one forward (need "
-          f"{NORMS_A_FORWARD})", flush=True)
-    if launches != NORMS_A_FORWARD:
-        raise AssertionError(f"the 4K serving forward launched the instance-norm pair {launches} times, expected "
-                             f"{NORMS_A_FORWARD}")
+          f"{NORMS_A_FORWARD}), direct_conv launches {convs} (need {CONVS_A_FORWARD})", flush=True)
+    if launches != NORMS_A_FORWARD or convs != CONVS_A_FORWARD:
+        raise AssertionError(f"the 4K serving forward launched the instance-norm pair {launches} times and the "
+                             f"direct conv {convs}, expected {NORMS_A_FORWARD} and {CONVS_A_FORWARD}")
     fused_ms = cuda_time_ms(fwd, iters=3, warmup=1, graph=True, replays=3)
     engages = instance_norm.engages
     instance_norm.engages = lambda *_: False
@@ -886,13 +902,230 @@ def frame_fused_against_plain() -> dict:
         plain_out, plain_ms = fwd(), cuda_time_ms(fwd, iters=3, warmup=1, graph=True, replays=3)
     finally:
         instance_norm.engages = engages
+    conv_engages = direct_conv.engages
+    direct_conv.engages = lambda *_: False
+    try:
+        cudnn_out, cudnn_ms = fwd(), cuda_time_ms(fwd, iters=3, warmup=1, graph=True, replays=3)
+    finally:
+        direct_conv.engages = conv_engages
     diff = (fused_out.int() - plain_out.int()).abs()
-    out = {"frame_launches": launches, "frame_fused_ms": fused_ms, "frame_plain_ms": plain_ms, "frame_max_diff": int(diff.max()),
+    conv_diff = (fused_out.int() - cudnn_out.int()).abs()
+    out = {"frame_launches": launches, "frame_conv_launches": convs, "frame_fused_ms": fused_ms,
+           "frame_plain_ms": plain_ms, "frame_cudnn_9x9_ms": cudnn_ms, "frame_max_diff": int(diff.max()),
            "frame_differ_share": float((diff > 0).double().mean())}
     print(f"4K packed-u8 bf16 frame (random weights), device alone: fused norms {fused_ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms; the two frames differ by at most {out['frame_max_diff']} counts in "
-          f"{out['frame_differ_share']:.2e} of their bytes", flush=True)
+          f"{out['frame_differ_share']:.2e} of their bytes; with cuDNN's 9x9s in place of the direct conv "
+          f"{cudnn_ms:.3f} ms, differing by at most {int(conv_diff.max())} counts in "
+          f"{float((conv_diff > 0).double().mean()):.2e} of the bytes", flush=True)
     return out
+
+
+CONV_4K = (2160, 3840)  # the 4K stream's frame
+L2_FLUSH_BYTES = 256 << 20  # written between cold launches: five times the H100's 50 MB L2
+
+
+def walk_convs(h: int, w: int) -> list:
+    """(name, input NHWC shape, weight OIHW shape, stride, padding) of the
+    resize walk's 16 convolutions over an h x w frame, as
+    `transform_net._walk_steps` calls `layers.conv2d` (the resize-convs as
+    their phase form: a 2x2 VALID conv over x padded by one)."""
+    names = (["initconv_0", "initconv_1", "initconv_2"]
+             + [f"resblock_{i}.{j}" for i in range(5) for j in (1, 2)] + ["upsample_0", "upsample_1", "upsample_2"])
+    out = []
+    for name, (ih, iw, _oh, _ow, k, s, ci, co) in zip(names, transform_net.conv_shapes(h, w)):
+        same = k == 9 or s == 2
+        out.append((name, (1, ih, iw, ci), (co, ci, k, k), s, "SAME" if same else "VALID"))
+    return out
+
+
+def conv_least_ms(x_shape, w_shape, stride: int, padding: str) -> tuple[float, str]:
+    """The least ms of one bf16 conv (benchmark/flops.py's rule): the larger
+    of its FLOPs over 989 TFLOP/s and its bytes (input and weights read
+    once, output written once) over 3.35 TB/s, and which of the two."""
+    _, ih, iw, ci = x_shape
+    co, _, k, _ = w_shape
+    oh, ow = (-(-ih // stride), -(-iw // stride)) if padding == "SAME" else (ih - k + 1, iw - k + 1)
+    flops = 2 * oh * ow * k * k * ci * co
+    nbytes = 2 * (ih * iw * ci + k * k * ci * co + oh * ow * co)
+    f_ms, b_ms = flops / TENSOR_PEAK[torch.bfloat16] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(f_ms, b_ms), ("FLOPs" if f_ms > b_ms else "bytes")
+
+
+def cold_ms(fn, iters: int = 5, warmup: int = 2) -> float:
+    """Mean device ms of `fn` by CUDA events around each call alone, with
+    the L2 flushed (L2_FLUSH_BYTES written) before each."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def device_kernels(fn) -> list:
+    """(kernel name, device ms) of one call of `fn`, by the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def conv_table() -> dict:
+    """Each of the serving walk's 16 convs at 4K bf16 through
+    `layers.conv2d` as the walk calls it (inference mode), device alone and
+    cold (the L2 flushed before each launch): ms beside its least, the
+    share of it, the share of the 16 convs' time, and the device kernels
+    one call runs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    rows, total = [], 0.0
+    print(f"the serving walk's 16 convs at {CONV_4K[1]}x{CONV_4K[0]} bf16, device alone, L2 flushed before each:")
+    with torch.inference_mode():
+        for name, x_shape, w_shape, stride, padding in walk_convs(*CONV_4K):
+            x = torch.randn(x_shape, generator=gen, device="cuda").to(torch.bfloat16)
+            w = (torch.randn(w_shape, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+            fn = lambda: layers.conv2d(x, w, stride=stride, padding=padding)
+            ms = cold_ms(fn)
+            least, by = conv_least_ms(x_shape, w_shape, stride, padding)
+            kernels = device_kernels(fn)
+            rows.append((name, x_shape, w_shape, stride, padding, ms, least, by, kernels))
+            total += ms
+            del x, w
+    for name, x_shape, w_shape, stride, padding, ms, least, by, kernels in rows:
+        names = "; ".join(f"{k[:60]} {t:.4f}" for k, t in kernels)
+        print(f"  {name}: x {list(x_shape)} w {list(w_shape)} s{stride} {padding}: {ms:.5f} ms, least {least:.5f} "
+              f"({by}), {100 * least / ms:.2f}% of it, {100 * ms / total:.1f}% of the convs' ms; kernels: {names}",
+              flush=True)
+    least_total = sum(r[6] for r in rows)
+    print(f"  the 16 convs: {total:.5f} ms, least {least_total:.5f}, {100 * least_total / total:.2f}% of it",
+          flush=True)
+    return {name: ms for name, *_rest, ms, _l, _b, _k in rows}
+
+
+# the kernel's shapes: the 4K walk's two 9x9s, then ragged ones (odd H and
+# W, a 1x1 image, two images, tiles cut at both edges) and a 4K frame's
+# 4-way `parallel.spatial` row window (668 padded rows: 540 owned, 2 x 40
+# pad, 2 x 24 halo; 588 at upsample_2) as (label, x shape, co, storage
+# offset in elements: 1 breaks the 16-byte alignment)
+DIRECT_4K = [("initconv_0", (1, 2240, 3920, 3), 16, 0), ("upsample_2", (1, 2160, 3840, 16), 3, 0)]
+DIRECT_RAGGED = [
+    ("1x1", (1, 1, 1, 3), 16, 0), ("7x5 x2", (2, 7, 5, 3), 16, 0), ("333x257", (1, 333, 257, 3), 16, 1),
+    ("1x1", (1, 1, 1, 16), 3, 0), ("37x131", (1, 37, 131, 16), 3, 0), ("9x250 x3", (3, 9, 250, 16), 3, 1),
+    ("spatial window", (1, 668, 3920, 3), 16, 0), ("spatial window", (1, 588, 3840, 16), 3, 0),
+    ("non-finite", (1, 37, 261, 3), 16, 0), ("non-finite", (1, 37, 261, 16), 3, 0),
+]
+# the "non-finite" shapes' poisoned input pixels (row, column, channel; None
+# for every channel) and their values: a NaN and two Infs, one at a tile's
+# last column. Unmasked, the pixels form's padding slots (the 5 elements past
+# an output's 27) would carry each to outputs 5 and 6 columns left of it.
+DIRECT_POISON = [((10, 50, None), float("nan")), ((20, 137, 0), float("inf")), ((30, 127, -1), -float("inf"))]
+DIRECT_ABS_TOL = 1e-5  # float32 sums in another order: of the sum of |products|
+
+
+def direct_inputs(shape, co: int, offset: int, gen):
+    """x like the walk's (uint8 image values at ci = 3, a relu's output at
+    ci = 16) in bf16 from a flat buffer whose [offset:] holds it, and w
+    [co, ci, 9, 9] bf16 of the trained weights' spread."""
+    n, h, w, ci = shape
+    x = torch.rand(shape, generator=gen, device="cuda") * 255 if ci == 3 else \
+        torch.randn(shape, generator=gen, device="cuda").clamp_min(0) * 2
+    buf = torch.empty(x.numel() + offset, dtype=torch.bfloat16, device="cuda")
+    buf[offset:].view(shape).copy_(x)
+    wt = (torch.randn((co, ci, 9, 9), generator=gen, device="cuda") * (0.03 if ci == 3 else 0.1)).to(torch.bfloat16)
+    return buf[offset:].view(shape), wt
+
+
+def direct_check(x, w, label: str) -> dict:
+    """Raises unless the kernel's output is within one bf16 rounding of the
+    float32 conv of the same values (|y - f| <= ulp(f) + DIRECT_ABS_TOL *
+    sum |products|) where f is finite, a NaN or the same Inf where f is not,
+    and two calls give the same bits; returns the worst ratio to that limit,
+    the largest |y - f| in ulps of f and the share of outputs that differ
+    from f rounded to bf16. The float32 conv of an input with Infs or NaNs
+    runs on the CPU (cuDNN may pick an FFT algorithm, which spreads them)."""
+    y = direct_conv.direct_conv(x, w)
+    again = direct_conv.direct_conv(x, w)
+    finite_in = bool(torch.isfinite(x).all())
+    xn, wf = x.float().permute(0, 3, 1, 2), w.float()
+    if not finite_in:
+        xn, wf = xn.cpu(), wf.cpu()
+    f = torch.nn.functional.conv2d(xn, wf, padding=4).permute(0, 2, 3, 1).to(x.device)
+    mag = torch.nn.functional.conv2d(xn.abs().nan_to_num(0.0, 0.0), wf.abs(), padding=4).permute(0, 2, 3, 1)
+    mag = mag.to(x.device)
+    ok = torch.isfinite(f)
+    ulp = torch.ldexp(torch.ones_like(f), torch.frexp(f)[1] - 8)
+    err = (y.float() - f).abs()[ok]
+    ratio = float((err / (ulp[ok] + DIRECT_ABS_TOL * mag[ok])).max())
+    yf = y.float()
+    same_nonfinite = bool(torch.equal(yf.isnan(), f.isnan()) and torch.equal(yf.isinf(), f.isinf())
+                          and torch.equal(yf[f.isinf()], f[f.isinf()]))
+    out = {"ratio": ratio, "ulps": float((err / ulp[ok]).max()),
+           "differ": float((y != f.to(y.dtype)).double().mean()), "equal": bool(torch.equal(y.view(torch.int16), again.view(torch.int16))),
+           "nonfinite": int((~ok).sum()), "same_nonfinite": same_nonfinite}
+    torch.cuda.synchronize()
+    del f, mag, ulp, err, yf
+    if not (ratio <= 1.0 and out["equal"] and same_nonfinite and (finite_in or out["nonfinite"] > 0)):
+        raise AssertionError(f"direct conv {label}: {out} (need ratio <= 1, two calls equal and the float32 "
+                             f"conv's non-finite outputs)")
+    return out
+
+
+def direct_phase_checks() -> dict:
+    """The kernel at the 4K walk's two shapes: held to the float32 conv
+    (`direct_check`), device alone and cold beside its least, the plain
+    version's and cuDNN's bf16 conv of the same call (`library_ms`), and
+    warm (CUDA-graph replays); then at the ragged shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    for label, shape, co, offset in DIRECT_4K + DIRECT_RAGGED:
+        x, w = direct_inputs(shape, co, offset, gen)
+        if label == "non-finite":
+            for (row, col, ch), val in DIRECT_POISON:
+                x[0, row, col, slice(None) if ch is None else ch] = val
+        c = direct_check(x, w, f"{label} {list(shape)} -> {co}")
+        line = (f"direct conv {label} x {list(shape)} -> {co} (offset {offset}, "
+                f"{direct_conv.SHAPES[(shape[3], co)]} form): worst {c['ratio']:.3f} of the limit, "
+                f"{c['ulps']:.3f} ulps from the float32 conv, {c['differ']:.2e} differ from it rounded, "
+                f"{c['nonfinite']} non-finite outputs where and as the float32 conv's, two calls equal")
+        if (label, shape, co, offset) in DIRECT_4K:
+            xn = x.permute(0, 3, 1, 2)
+            k_ms = cold_ms(lambda: direct_conv.direct_conv(x, w))
+            warm_ms = cuda_time_ms(lambda: direct_conv.direct_conv(x, w), iters=10, warmup=2, graph=True, replays=3)
+            p_ms = cold_ms(lambda: direct_conv.direct_conv_plain(x, w), iters=3, warmup=1)
+            lib_ms = cold_ms(lambda: torch.nn.functional.conv2d(xn, w, padding=4), iters=3, warmup=1)
+            b_ms, by = conv_least_ms(shape, w.shape, 1, "SAME")
+            line += (f"; kernel_dev_ms={k_ms:.5f} (cold) warm_ms={warm_ms:.5f} bound_ms={b_ms:.5f} ({by}) "
+                     f"bound_share={b_ms / k_ms:.3f} plain_dev_ms={p_ms:.5f} library_ms={lib_ms:.5f} (cuDNN bf16) "
+                     f"blocks={direct_conv.card_slots(0, shape[3], co)}")
+            out.update({f"{label}_ms": k_ms, f"{label}_bound_ms": b_ms, f"{label}_library_ms": lib_ms})
+            for key, val in zip(("ms", "bound_ms", "plain_ms", "library_ms"), (k_ms, b_ms, p_ms, lib_ms)):
+                out[key] += val
+        out["max_ratio"] = max(out.get("max_ratio", 0.0), c["ratio"])
+        print(line, flush=True)
+        del x, w
+        torch.cuda.empty_cache()
+    print(f"direct conv, the 4K walk's two 9x9s: " + " ".join(f"{k}={out[k]:.5f}" for k in
+          ("ms", "bound_ms", "plain_ms", "library_ms")) + f" bound_share={out['bound_ms'] / out['ms']:.3f}",
+          flush=True)
+    return out
+
+
+def conv_phase() -> dict:
+    phase("conv")
+    direct_conv.launches = 0
+    checks = direct_phase_checks()
+    table = conv_table()
+    return {"walk_ms": table, **checks, "launches": direct_conv.launches}
 
 
 def write_inputs(root: Path) -> tuple[Path, Path]:
@@ -1591,14 +1824,18 @@ def stream_reading(r: dict) -> str:
     return f"{r['frames']} frames, {r['fps']:.3f} fps, p50 {ms(r['p50_ms'])}, p99 {ms(r['p99_ms'])}"
 
 
-def norm_launches(check: "Checks", what: str, forwards: int, counts: dict) -> None:
+def norm_launches(check: "Checks", what: str, forwards: int, counts: dict, bf16: bool) -> None:
     """Checks that the serving run just made launched the instance-norm pair
-    16 times a forward (the counter was set to 0 before it), and adds its
+    16 times a forward and, in bf16, the direct conv twice a forward (none
+    in float32; both counters were set to 0 before it), and adds the
     launches and forwards to `counts`."""
     got, want = instance_norm.launches, NORMS_A_FORWARD * forwards
-    check(got == want, f"{what}: instance_norm launches {got} (need {want}, {NORMS_A_FORWARD} for each of "
-                       f"{forwards} forwards)")
+    convs, want_convs = direct_conv.launches, (CONVS_A_FORWARD if bf16 else 0) * forwards
+    check(got == want and convs == want_convs,
+          f"{what}: instance_norm launches {got} (need {want}, {NORMS_A_FORWARD} for each of {forwards} forwards), "
+          f"direct_conv launches {convs} (need {want_convs})")
     counts["launches"] += got
+    counts["conv_launches"] += convs
     counts["forwards"] += forwards
 
 
@@ -1608,16 +1845,17 @@ def stream_phase() -> dict:
     them."""
     phase("stream")
     check = Checks("stream")
-    counts = {"launches": 0, "forwards": 0}
+    counts = {"launches": 0, "conv_launches": 0, "forwards": 0}
     base = ["--model_path", str(STARRY), "--no_display", "--report_latency"]
     for w, h, precision, depth, packed in STREAMS:
         args = base + ["--num_synthetic_frames", str(STREAM_FRAMES), "--resolution", str(w), str(h),
                        "--precision", precision, "--pipeline_depth", str(depth)] + (["--packed_fetch"] if packed else [])
-        instance_norm.launches = 0
+        instance_norm.launches = direct_conv.launches = 0
         r = cli_webcam.main(args)
         what = f"stream {w}x{h} {precision} depth {depth}{' packed' if packed else ''}"
         check(r["frames"] == STREAM_FRAMES and r["fps"] > 0 and r["p99_ms"] is not None, f"{what}: {stream_reading(r)}")
-        norm_launches(check, what, r["frames"] + 1, counts)  # the frames and the warm-up's one
+        # the frames and the warm-up's one
+        norm_launches(check, what, r["frames"] + 1, counts, precision == "bfloat16")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
         import cv2
 
@@ -1628,13 +1866,13 @@ def stream_phase() -> dict:
         for f in frames:
             writer.write(f)
         writer.release()
-        instance_norm.launches = 0
+        instance_norm.launches = direct_conv.launches = 0
         r = cli_webcam.main(base + ["--video_path", str(root / "in.avi"), "--max_frames", "30",
                                     "--output_path", str(root / "out.avi")])
         size = (root / "out.avi").stat().st_size if (root / "out.avi").exists() else 0
         check(r["frames"] == 30 and size > 0, f"video {fw}x{fh} MJPG through --video_path --max_frames 30: "
                                               f"{stream_reading(r)}, output {size} bytes")
-        norm_launches(check, f"video {fw}x{fh}", r["frames"] + 1, counts)
+        norm_launches(check, f"video {fw}x{fh}", r["frames"] + 1, counts, True)  # the CLI's default bf16
     # the forward alone on the device: uint8 frame in, uint8 (or packed) out
     for w, h, precision, packed in ((1920, 1080, "bfloat16", False), (1920, 1080, "float32", False),
                                     (1920, 1080, "bfloat16", True), (1920, 1080, "float32", True),
@@ -1644,15 +1882,16 @@ def stream_phase() -> dict:
         frame = next(cli_webcam.synthetic_frames(1, h, w))[None]
         x = torch.from_numpy(inference.pack_u8_host(frame) if packed else frame).cuda()
         fn = (lambda: s.stylize_device(x, (h, w))) if packed else (lambda: s.stylize_device(x))
-        instance_norm.launches = 0
+        instance_norm.launches = direct_conv.launches = 0
         dev = cuda_time_ms(fn, iters=10, graph=True, replays=3)
         eager = cuda_time_ms(fn, iters=10)
         what = f"forward {w}x{h} {precision}{' packed' if packed else ''}"
         print(f"{what}: device-alone {dev:.5f} ms/frame, eager {eager:.5f} ms/frame", flush=True)
-        norm_launches(check, what, 2 * (3 + 10), counts)  # each timing's 3 warm-up and 10 timed calls
+        # each timing's 3 warm-up and 10 timed calls
+        norm_launches(check, what, 2 * (3 + 10), counts, precision == "bfloat16")
     check.done()
     print(f"instance_norm launches on the stream's serving paths: {counts['launches']} in {counts['forwards']} "
-          f"forwards", flush=True)
+          f"forwards; direct_conv launches {counts['conv_launches']}", flush=True)
     return counts
 
 
@@ -2024,7 +2263,8 @@ def main(argv: list) -> None:
     smi = device_phase()
     build_phase()
     if argv:
-        chosen = {"kernel": kernel_phase, "wgrad": wgrad_phase, "norm": norm_phase, "repro": repro_phase,
+        chosen = {"kernel": kernel_phase, "wgrad": wgrad_phase, "norm": norm_phase, "conv": conv_phase,
+                  "repro": repro_phase,
                   "slice": slice_phase,
                   "records": records_phase, "distill": distill_phase, "serve": serve_phase,
                   "parallel": lambda: parallel_phase(smi), "stream": stream_phase, "slow": slow_style_phase,
@@ -2040,6 +2280,7 @@ def main(argv: list) -> None:
     k = kernel_phase()
     w = wgrad_phase()
     nm = norm_phase()
+    cv = conv_phase()
     repro_phase()
     s = slice_phase()
     r = records_phase()
@@ -2057,6 +2298,8 @@ def main(argv: list) -> None:
           f"{b['wgrad_launches']} in the bench")
     print(f"instance_norm launches: {nm['frame_launches']} in the 4K packed-u8 bf16 forward, {st['launches']} in "
           f"the stream phase's {st['forwards']} forwards")
+    print(f"direct_conv launches: {cv['launches']} in the conv phase, {nm['frame_conv_launches']} in the 4K "
+          f"packed-u8 bf16 forward, {st['conv_launches']} in the stream phase")
     print(json.dumps({"kernels": [{
         "name": "gram",
         "route": "cuda",
@@ -2108,6 +2351,24 @@ def main(argv: list) -> None:
         "float32_ms": nm["float32_device_ms"],
         "frame_fused_ms": nm["frame_fused_ms"],
         "frame_plain_ms": nm["frame_plain_ms"],
+    }, {
+        # no TPU kernel stands behind it: the JAX package's 9x9 convs, which
+        # XLA compiles
+        "name": "direct_conv",
+        "route": "cuda",
+        "source": "faststyle_tpu_torch/csrc/direct_conv.cu",
+        "replaces": "faststyle_tpu/ops/layers.py:59",
+        "launches": nm["frame_conv_launches"] + st["conv_launches"],
+        "max_limit_ratio": cv["max_ratio"],
+        "ms": cv["ms"],
+        "initconv_0_ms": cv["initconv_0_ms"],
+        "upsample_2_ms": cv["upsample_2_ms"],
+        "plain_ms": cv["plain_ms"],
+        "bound_ms": cv["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": cv["library_ms"],
+        "frame_ms": nm["frame_fused_ms"],
+        "frame_cudnn_9x9_ms": nm["frame_cudnn_9x9_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

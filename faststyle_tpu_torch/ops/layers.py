@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from faststyle_tpu_torch.ops import conv_grad
+from faststyle_tpu_torch.ops.cuda import direct_conv
+from faststyle_tpu_torch.utils import profiling
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -89,7 +91,14 @@ def conv2d(
     the deterministic weight-gradient kernel, not cuDNN's atomics. `relu`
     follows it with a relu: where nothing records a gradient on the card,
     the bias and the relu are cuDNN's fused epilogue
-    (`cudnn_convolution_relu`), so neither costs a pass of its own."""
+    (`cudnn_convolution_relu`), so neither costs a pass of its own. A bf16
+    9x9 SAME conv 3 -> 16 or 16 -> 3 with neither, on the card with nothing
+    recording a gradient (`direct_conv.engages`: the serving walk's first
+    and last conv), runs as the hand-written kernel inside a `conv.direct`
+    span."""
+    if direct_conv.engages(x, w, stride, padding, bias, relu):
+        with profiling.span("conv.direct"):
+            return direct_conv.direct_conv(x.contiguous(), w)
     k_h, k_w = w.shape[2], w.shape[3]
     xn = _nchw(x)
     pad = (0, 0)
